@@ -3,20 +3,11 @@
 DejaVu has no CJK glyphs (its densest glyphs run ~10-60 segments);
 real CJK glyphs run 200-500.  This config synthesizes that regime —
 1000 glyphs x 288 segments of small closed multi-stroke contours
-spread over the em box — and measures what the v2 kernel was designed
-for (``winding_pallas_v2.py``): segment *streaming* through the grid
-and per-strip y-*culling* of segment chunks.
-
-Three measurements (chained-unique-seed device protocol throughout):
+spread over the em box — and measures:
 
 1. winding atlas @64px / @32px over the 1000-glyph batch (the
    CJK-atlas analog of BASELINE config 4's shapes);
-2. SDF atlas @32px / @64px on the same batch (config 4 proper);
-3. y-cull scaling: one tall glyph (512px) with segment counts
-   128..1024, strokes y-sorted (chunk-coherent, cullable — the layout
-   real outlines have) vs shuffled (every chunk spans every strip):
-   the sorted/shuffled gap is the cull win, and sorted per-glyph cost
-   demonstrates streaming at high S.
+2. SDF atlas @32px / @64px on the same batch (config 4 proper).
 
 Run: ``python -m benchmarks.cjk``
 """
@@ -24,12 +15,10 @@ Run: ``python -m benchmarks.cjk``
 from __future__ import annotations
 
 import sys
-import time
-from functools import partial
 
 import numpy as np
 
-from benchmarks.harness import emit, setup_cache
+from benchmarks.harness import device_info, emit, setup_cache, timeit
 
 UPEM = 2048
 
@@ -69,207 +58,66 @@ def make_batch(b: int, n_segments: int, seed: int = 7):
     return np.stack([synthetic_strokes(rng, n_segments) for _ in range(b)])
 
 
-def _chained_timer(fn, d_var, n_iter=24, repeats=4):
-    """bench.py protocol: n steps chained on-device in one dispatch,
-    unique seed per call, RTT from a 1-step chain subtracted."""
-    import jax
-    import jax.numpy as jnp
-
-    @partial(jax.jit, static_argnames="n")
-    def chain(seed, n):
-        def body(i, dep):
-            bump = jax.lax.convert_element_type(
-                jnp.floor(jnp.abs(dep)), jnp.int32) >> 30
-            out = fn(d_var[i % 4] + bump)
-            # sum over one element per glyph: robust against XLA DCE of
-            # concatenated sub-launches if a batch ever splits
-            return jnp.sum(out[:, 0, 0]).astype(jnp.float32) + jnp.float32(
-                dep % 7.0
-            )
-
-        return jax.lax.fori_loop(0, n, body, jnp.float32(seed))
-
-    counter = [int(time.time()) % 100000]
-
-    def run(k):
-        counter[0] += 1
-        t0 = time.perf_counter()
-        float(chain(counter[0], k))
-        return time.perf_counter() - t0
-
-    run(1), run(n_iter)
-    rtt = min(run(1) for _ in range(repeats))
-    tot = min(run(n_iter) for _ in range(repeats))
-    return max(tot - rtt, 1e-9) / (n_iter - 1)
-
-
 def atlas(b=1000, n_segments=288):
-    import jax
-    import jax.numpy as jnp
-
+    """Winding atlas at 64 and 32 px over the synthetic batch, with an
+    every-pixel oracle check of three glyphs."""
     from fontrx.engine.raster import RasterEngine
     from fontrx.kernels import oracle
-    from fontrx.pack.segments import xsort_segments
 
     segs = make_batch(b, n_segments)
-    # x-sorted packing: the dense column-major kernel's per-chunk
-    # crossing x-windows get narrow (pack-time order is free — winding
-    # sums commute; tools/tpu_probes/tpu_dense.py: 10.5 -> 8.2 ms)
-    d_segs = jnp.asarray(np.stack([xsort_segments(s) for s in segs]))
-    on_tpu = jax.default_backend() == "tpu"
-    engine = RasterEngine(
-        exact=True, backend="auto" if on_tpu else "interpret")
-
+    engine = RasterEngine()
+    dev = device_info()
     for size in (64, 32):
-        scale = np.float32(size / UPEM)
-        max_y = np.full(b, size - 1, np.int32)
-        d_var = jnp.stack([jnp.full(b, i, jnp.int32) for i in range(4)])
-        d_my = jnp.asarray(max_y)
-        # pack-time window stream (the shipped atlas parameterization:
-        # per-chunk row culling + lane-group chunk splits; None off-TPU
-        # keeps the interpret path single-kernel)
-        wins = engine.pack_windows(
-            np.stack([xsort_segments(s) for s in segs]),
-            np.zeros(b, np.int32), max_y, float(scale), height=size,
-        )
+        scale = float(np.float32(size / UPEM))
+        mx = np.zeros(b, np.int32)
+        my = np.full(b, size - 1, np.int32)
 
-        def fn(mx, size=size, scale=scale, d_my=d_my, wins=wins):
-            # the SHIPPED engine path (picks the dense column-major
-            # kernel for this capacity/tile shape)
-            return engine.winding_batch(
-                d_segs, mx, d_my, jnp.float32(scale),
-                height=size, width=size, windows=wins,
-            )
+        def fn(size=size, scale=scale, my=my):
+            return engine.winding_batch(segs, mx, my, scale, height=size,
+                                        width=size)
 
-        dt = _chained_timer(fn, d_var, n_iter=12 if on_tpu else 2,
-                            repeats=4 if on_tpu else 1)
-        # correctness spot-check (3 glyphs, every pixel, device compare)
-        out = fn(d_var[0])
+        t = timeit(fn, n=5)
+        out = np.asarray(fn())
         mism = 0
         for i in (0, b // 2, b - 1):
-            xs = (0 + np.arange(size)).astype(np.float32) / scale
-            ys = (max_y[i] - np.arange(size)).astype(np.float32) / scale
-            w = oracle.winding_at(
-                segs[i], xs[None, :], ys[:, None],
-                contract=not on_tpu,
-            )
-            mism += int((np.asarray(out[i, :size, :size]) != w).sum())
+            xs = np.arange(size).astype(np.float32) / np.float32(scale)
+            ys = (my[i] - np.arange(size)).astype(np.float32) \
+                / np.float32(scale)
+            w = oracle.winding_at(segs[i], xs[None, :], ys[:, None],
+                                  contract=False)
+            mism += int((out[i] != w).sum())
         emit("cjk-winding-atlas", f"glyphs/s {size}px {n_segments}seg winding",
-             b / dt, "glyphs/s", ms_per_atlas=round(dt * 1e3, 2),
-             batch=b, segments_per_glyph=n_segments,
-             mismatched_pixels=mism, backend=jax.default_backend())
+             b / t["median_s"], "glyphs/s", ms_per_atlas=t["median_s"] * 1e3,
+             p90_ms=t["p90_s"] * 1e3, n=t["n"], batch=b,
+             segments_per_glyph=n_segments, mismatched_pixels=mism,
+             device=dev)
 
 
 def sdf_atlas(b=1000, n_segments=288):
-    import jax
-    import jax.numpy as jnp
-
-    from fontrx.kernels.sdf import sdf_batch, sdf_to_u8
-    from fontrx.kernels.sdf_pallas import sdf_pallas_batch
+    """SDF atlas at 32 and 64 px over the synthetic batch."""
+    from fontrx.engine.raster import RasterEngine
 
     segs = make_batch(b, n_segments)
-    d_segs = jnp.asarray(segs)
-    on_tpu = jax.default_backend() == "tpu"
+    engine = RasterEngine()
+    dev = device_info()
     for size in (32, 64):
-        scale = np.float32(size / UPEM)
-        d_my = jnp.asarray(np.full(b, size - 1, np.int32))
-        d_var = jnp.stack([jnp.full(b, i, jnp.int32) for i in range(4)])
-        w128 = ((size + 127) // 128) * 128
-
-        if on_tpu:
-            # PRODUCTION dispatch: tiled band-culled kernel at 64px
-            # (1.47x, tpu_sdf_tiled3.py), flat-pixel mode at 32px
-            # (tiled measured a wash there); x_slack covers the
-            # chained protocol's jittered anchors
-            from fontrx.engine.raster import RasterEngine
-
-            engine = RasterEngine()
-            pack = engine.pack_sdf(
-                segs, np.zeros(b, np.int32),
-                np.full(b, size - 1, np.int32), float(scale),
-                height=size, width=size, x_slack_px=4.0,
-            )
-
-            def fn(mx, size=size, scale=scale, d_my=d_my,
-                   engine=engine, pack=pack):
-                return sdf_to_u8(engine.sdf_batch(
-                    d_segs, mx, d_my, float(scale),
-                    height=size, width=size, pack=pack,
-                ))
-        else:
-            def fn(mx, size=size, scale=scale, d_my=d_my):
-                return sdf_to_u8(sdf_batch(
-                    d_segs, mx, d_my, jnp.float32(scale),
-                    height=size, width=size,
-                ))
-
-        dt = _chained_timer(fn, d_var, n_iter=6 if on_tpu else 2,
-                            repeats=4 if on_tpu else 1)
+        args = (segs, np.zeros(b, np.int32), np.full(b, size - 1, np.int32),
+                np.float32(size / UPEM))
+        t = timeit(lambda: engine.sdf_batch(*args, height=size, width=size),
+                   n=5)
         emit("cjk-sdf-atlas", f"glyphs/s {size}px {n_segments}seg SDF",
-             b / dt, "glyphs/s", ms_per_atlas=round(dt * 1e3, 2),
-             batch=b, segments_per_glyph=n_segments,
-             backend=jax.default_backend())
-
-
-def ycull_scaling():
-    """Per-glyph cost vs segment count on a tall (512px) tile, strokes
-    y-sorted vs shuffled: the gap is the strip cull win; sorted scaling
-    shows the streaming design holds at CJK segment counts."""
-    import jax
-    import jax.numpy as jnp
-
-    from fontrx.kernels.winding_pallas_v2 import winding_pallas_v2_batch
-
-    on_tpu = jax.default_backend() == "tpu"
-    size = 512
-    scale = np.float32(size / UPEM)
-    rng = np.random.default_rng(11)
-    rows = []
-    for n_seg in (128, 256, 512, 1024):
-        times = {}
-        for sorted_ in (True, False):
-            segs = np.stack([
-                synthetic_strokes(rng, n_seg, y_sorted=sorted_)
-                for _ in range(8)
-            ])
-            d_segs = jnp.asarray(segs)
-            d_my = jnp.asarray(np.full(8, size - 1, np.int32))
-            d_var = jnp.stack([jnp.full(8, i, jnp.int32) for i in range(4)])
-
-            def fn(mx, d_segs=d_segs, d_my=d_my):
-                return winding_pallas_v2_batch(
-                    d_segs, mx, d_my, jnp.float32(scale),
-                    height=size, width=128, exact=True, guard=True,
-                    interpret=not on_tpu,
-                )
-
-            times[sorted_] = _chained_timer(
-                fn, d_var, n_iter=12 if on_tpu else 2,
-                repeats=4 if on_tpu else 1,
-            )
-        rows.append((n_seg, times[True], times[False]))
-        emit("cjk-ycull", f"ms/batch8 512px {n_seg}seg",
-             times[True] * 1e3, "ms",
-             shuffled_ms=round(times[False] * 1e3, 3),
-             cull_speedup=round(times[False] / times[True], 2),
-             backend=jax.default_backend())
-    # sublinearity check: 8x the segments should cost far less than 8x
-    # (sorted strokes touch ~1 strip per chunk)
-    r0, rN = rows[0], rows[-1]
-    growth = (rN[1] / r0[1]) / (rN[0] / r0[0])
-    emit("cjk-ycull-scaling", "sorted per-segment cost ratio (1.0 = linear)",
-         growth, "ratio")
+             b / t["median_s"], "glyphs/s", ms_per_atlas=t["median_s"] * 1e3,
+             p90_ms=t["p90_s"] * 1e3, n=t["n"], batch=b,
+             segments_per_glyph=n_segments, device=dev)
 
 
 def main(argv):
     setup_cache()
-    which = argv[1:] or ["atlas", "sdf", "ycull"]
+    which = argv[1:] or ["atlas", "sdf"]
     if "atlas" in which:
         atlas()
     if "sdf" in which:
         sdf_atlas()
-    if "ycull" in which:
-        ycull_scaling()
 
 
 if __name__ == "__main__":

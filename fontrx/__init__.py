@@ -1,21 +1,21 @@
-"""fontrx — a TPU-native glyph rasterization framework.
+"""fontrx — a glyph rasterization framework on JAX.
 
-A ground-up JAX/XLA/Pallas re-design of the capabilities of
+A ground-up JAX/XLA re-design of the capabilities of
 nyasyamorina/font-renderer (a Zig + Vulkan interactive font renderer):
 
 - ``fontrx.font``     — host-side TrueType frontend (tables, cmap, glyf,
   compound flattening, contour normalization).  Reference behavior:
   ``src/font/{ttf,Font,Glyph,CharGlyphMapping}.zig``.
 - ``fontrx.pack``     — glyph outlines -> padded quadratic-segment tensors
-  (the TPU analog of the reference's GPU vertex/index buffers,
+  (the analog of the reference's GPU vertex/index buffers,
   ``src/Appli.zig:219-302``).
-- ``fontrx.kernels``  — Pallas TPU kernels + jnp references: analytic
+- ``fontrx.kernels``  — the row-binned XLA raster route: analytic
   winding fill (the math of ``src/tools/render_glyph.zig:35-73``), MSAA
   supersampled coverage, signed-distance fields, and a Loop-Blinn style
   triangle fill (the math of ``src/shaders/shader.slang:32-51``).
 - ``fontrx.engine``   — jitted raster steps, atlas batching, multi-device
   sharding over a ``jax.sharding.Mesh``, compilation-cache wiring
-  (TPU analog of ``src/VulkanContext.zig`` + ``src/CacheManager.zig``).
+  (the analog of ``src/VulkanContext.zig`` + ``src/CacheManager.zig``).
 - ``fontrx.scene``    — text layout, view transforms, interactive loop
   (semantics of ``src/Appli.zig`` + ``src/CallbackContext.zig``).
 - ``fontrx.io``       — image containers and a QOI encoder byte-compatible
@@ -84,7 +84,7 @@ def render_text(font, text, *, size=256, mode="fill", engine=None,
     if engine is None:
         from fontrx.engine.raster import RasterEngine
 
-        engine = RasterEngine(backend=getattr(cfg, "backend", "auto"))
+        engine = RasterEngine()
     if cfg.variation and hasattr(font, "set_variation"):
         from fontrx.cli.main import parse_variation_str
 

@@ -9,7 +9,7 @@ together instead of stopping at the first (``Config.zig:144-206``).
 
 The reference's four flags are preserved with the same names/shorts
 (``-f/--font_file``, ``-t/--text``, ``-c/--cache``, ``-d/--debug``,
-``Config.zig:10-13``) plus raster options for the TPU engine.
+``Config.zig:10-13``) plus raster options for the raster engine.
 """
 
 from __future__ import annotations
@@ -63,7 +63,6 @@ class Config:
     variation: Optional[str] = option(None, default=None, help="variable-font design location, e.g. wght=700,wdth=80 (fvar/gvar)")
     embolden: float = option(None, default=0.0, help="smooth mode: dilate (+) / thin (-) the outline by this many pixels (synthetic bold)")
     output: Optional[str] = option("o", default=None, help="output .qoi path")
-    backend: str = option(None, default="auto", help="auto|pallas|jnp|interpret")
     interactive: bool = option("i", default=False, help="interactive zoom/pan session")
     kern: bool = option("k", default=False, help="apply pair kerning (kern table or GPOS)")
     ligatures: bool = option("l", default=False, help="apply GSUB standard ligatures")

@@ -60,7 +60,7 @@ def main(argv: list[str] | None = None) -> int:
     if cfg.info:
         print(font_info_text(font))
         return 0
-    engine = RasterEngine(backend=cfg.backend)
+    engine = RasterEngine()
     text = cfg.text if cfg.text is not None else "A"
 
     if cfg.interactive:
@@ -207,42 +207,22 @@ def _layout_for(font, text, cfg, vertical_ok: bool = False):
 
 def _sdf_for_layout(layout, font, cfg, engine, spread_px: float):
     """Shared SDF scaffolding for the sdf/smooth/outline modes: fixed
-    per-glyph tiles, flat-pixel Pallas on TPU, jnp elsewhere."""
-    import jax.numpy as jnp
-
+    per-glyph tiles through the engine's SDF atlas."""
     from fontrx.kernels.grid import RasterGrid
-    from fontrx.kernels.sdf import sdf_batch
 
+    del spread_px  # distances come back unclamped
     grids = [
         RasterGrid.fixed_tile(
             tuple(b), cfg.size, font.info.units_per_em, cfg.size
         )
         for b in np.asarray(layout.batch.boxes)
     ]
-    sargs = (
-        jnp.asarray(layout.batch.segments),
-        jnp.array([g.min_x for g in grids], jnp.int32),
-        jnp.array([g.max_y for g in grids], jnp.int32),
-        jnp.float32(grids[0].scale),
+    return engine.sdf_batch(
+        layout.batch.segments,
+        np.array([g.min_x for g in grids], np.int32),
+        np.array([g.max_y for g in grids], np.int32),
+        grids[0].scale, height=cfg.size, width=cfg.size,
     )
-    flat = (cfg.size & (cfg.size - 1) == 0
-            and (cfg.size * cfg.size) % 1024 == 0)
-    if engine._resolve() == "pallas" and flat:
-        # production dispatch: tiled band-culled kernel in the dense
-        # regime (capacity >= 128, size >= 64 — the probed routing),
-        # flat-pixel mode elsewhere; bit-identical either way
-        host_segs = np.asarray(layout.batch.segments)
-        host_mx = np.array([g.min_x for g in grids], np.int32)
-        host_my = np.array([g.max_y for g in grids], np.int32)
-        pack = engine.pack_sdf(
-            host_segs, host_mx, host_my, float(grids[0].scale),
-            height=cfg.size, width=cfg.size, spread_px=spread_px,
-        )
-        return engine.sdf_batch(
-            *sargs, height=cfg.size, width=cfg.size,
-            spread_px=spread_px, pack=pack,
-        )
-    return sdf_batch(*sargs, height=cfg.size, width=cfg.size)
 
 
 def _render_hinted(font, text, cfg, engine) -> np.ndarray:
@@ -525,9 +505,9 @@ def _render(font, text, cfg, engine) -> np.ndarray:
             for b in np.asarray(layout.batch.boxes)
         ]
         cov = engine.coverage_batch(
-            jnp.asarray(layout.batch.segments),
-            jnp.array([g.min_x for g in grids], jnp.int32),
-            jnp.array([g.max_y for g in grids], jnp.int32),
+            layout.batch.segments,
+            np.array([g.min_x for g in grids], np.int32),
+            np.array([g.max_y for g in grids], np.int32),
             grids[0].scale,
             height=cfg.size,
             width=cfg.size,
@@ -555,27 +535,21 @@ def _render(font, text, cfg, engine) -> np.ndarray:
         # LCD subpixel antialiasing: per-channel coverage at the RGB
         # stripe centers (R -1/3 px, G 0, B +1/3) — a capability
         # extension (no subpixel rendering in the reference)
-        from fontrx.kernels.coverage import coverage_to_gray, lcd_coverage_batch
+        from fontrx.kernels.coverage import coverage_to_gray
 
         layout = _layout_for(font, text, cfg)
         grids = [
             RasterGrid.fixed_tile(tuple(b), cfg.size, font.info.units_per_em, cfg.size)
             for b in np.asarray(layout.batch.boxes)
         ]
-        backend = engine._resolve()
-        use_pallas = backend in ("pallas", "interpret")
-        h = ((cfg.size + 127) // 128) * 128 if use_pallas else cfg.size
-        w = h if use_pallas else cfg.size
-        cov = lcd_coverage_batch(
-            jnp.asarray(layout.batch.segments),
-            jnp.array([g.min_x for g in grids], jnp.int32),
-            jnp.array([g.max_y for g in grids], jnp.int32),
-            jnp.float32(grids[0].scale),
-            height=h, width=w,
+        cov = engine.lcd_coverage_batch(
+            layout.batch.segments,
+            np.array([g.min_x for g in grids], np.int32),
+            np.array([g.max_y for g in grids], np.int32),
+            grids[0].scale,
+            height=cfg.size, width=cfg.size,
             samples=max(cfg.samples, 2),
-            use_pallas=use_pallas,
-            interpret=backend == "interpret",
-        )[:, : cfg.size, : cfg.size, :]
+        )
         return np.concatenate(
             list(np.asarray(coverage_to_gray(cov))), axis=1
         )
@@ -629,7 +603,7 @@ def _render(font, text, cfg, engine) -> np.ndarray:
             w = engine.winding_glyph(glyph_segments(glyph), grid)
             fill = np.where(np.asarray(w) != 0, 255, 0).astype(np.uint8)
             return np.repeat(fill[:, :, None], 3, axis=2)
-        fill = loopblinn_fill(tg, grid, backend=engine._resolve())
+        fill = loopblinn_fill(tg, grid)
         return np.repeat(fill[:, :, None], 3, axis=2)
 
     raise SystemExit(f"unknown mode {cfg.mode!r}")

@@ -1,7 +1,7 @@
 """Live browser viewer for the interactive session.
 
 The reference opens a GLFW window (``src/VulkanContext.zig:95-213``);
-a TPU host is display-less, so the live-viewing analog is a tiny
+an accelerator host is display-less, so the live-viewing analog is a tiny
 stdlib HTTP server: the browser shows PNG frames and forwards
 scroll-to-zoom, drag-to-pan, resize, and the m/d/t toggle keys back to
 the same ``InteractiveSession`` that powers the stdin protocol.

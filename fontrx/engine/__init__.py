@@ -1,7 +1,7 @@
 """Raster engine: jitted raster steps, atlas batching, device sharding,
 compilation-cache wiring.
 
-The TPU analog of the reference's device runtime (``src/VulkanContext.zig``
+The analog of the reference's device runtime (``src/VulkanContext.zig``
 buffers/pipelines/frame loop + ``src/CacheManager.zig`` pipeline-cache
 persistence): instead of staging buffers and graphics pipelines there are
 ``jax.device_put`` uploads, jit-compiled raster executables cached by

@@ -1,6 +1,6 @@
 """Atlas batching: rasterize a whole glyph set in one jitted step.
 
-BASELINE configs 3 (ASCII atlas @128px) and 4 (CJK SDF atlas) — the TPU
+BASELINE configs 3 (ASCII atlas @128px) and 4 (CJK SDF atlas) — the
 replacement for the reference's per-glyph GPU residency + per-instance
 draws (``src/Appli.zig:219-302``): all glyphs of a set become one
 ``[B, S, 3, 2]`` tensor and one kernel launch rasterizes every tile.

@@ -1,12 +1,18 @@
 """Compilation-cache persistence.
 
-The direct TPU analog of the reference's Vulkan pipeline-cache store
+The analog of the reference's Vulkan pipeline-cache store
 (``src/CacheManager.zig``): where the reference persists
 ``vkGetPipelineCacheData`` blobs per pipeline under ``<exe>/.cache`` and
 reloads them as initial data, we wire up the **XLA persistent
 compilation cache** so jitted raster executables survive process
-restarts.  Opt-in via the ``-c`` flag (``Config.zig:12`` semantics) or
-``FONTRX_CACHE_DIR``.
+restarts.  Enabled by the ``-c`` flag (``Config.zig:12`` semantics) and
+by the benchmark and smoke scripts.
+
+Where the cache lives: ``JAX_COMPILATION_CACHE_DIR`` when the
+environment sets it (JAX then reads it itself and nothing here
+overrides it), else a fixed, git-ignored directory inside the checkout
+(``.cache/xla`` at the repository root) — a fixed path, because the
+path is part of the cache key.
 
 The staleness story the reference implements by MD5-diffing the cache
 blob (``CacheManager.zig:163-188``) is handled by XLA itself: cache
@@ -22,7 +28,14 @@ from fontrx.utils.log import get_logger
 
 log = get_logger("CacheManager")
 
-DEFAULT_DIR = "~/.cache/fontrx/xla"
+CHECKOUT_DIR = pathlib.Path(__file__).resolve().parents[2] / ".cache" / "xla"
+
+
+def cache_dir(directory: str | None = None) -> str:
+    """The cache directory in use: the environment's, else
+    ``directory``, else the checkout's."""
+    return str(os.environ.get("JAX_COMPILATION_CACHE_DIR")
+               or directory or CHECKOUT_DIR)
 
 
 def enable_compilation_cache(directory: str | None = None) -> str:
@@ -30,10 +43,10 @@ def enable_compilation_cache(directory: str | None = None) -> str:
     directory in use."""
     import jax
 
-    directory = directory or os.environ.get("FONTRX_CACHE_DIR", DEFAULT_DIR)
-    directory = str(pathlib.Path(directory).expanduser())
+    directory = cache_dir(directory)
     pathlib.Path(directory).mkdir(parents=True, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", directory)
+    if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        jax.config.update("jax_compilation_cache_dir", directory)
     # cache even fast compiles — raster kernels are small but recompiled
     # per shape bucket
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
@@ -44,8 +57,7 @@ def enable_compilation_cache(directory: str | None = None) -> str:
 
 def cache_stats(directory: str | None = None) -> dict:
     """Report cache contents (entry count / bytes) for observability."""
-    directory = directory or os.environ.get("FONTRX_CACHE_DIR", DEFAULT_DIR)
-    p = pathlib.Path(directory).expanduser()
+    p = pathlib.Path(cache_dir(directory))
     if not p.exists():
         return {"entries": 0, "bytes": 0, "dir": str(p)}
     files = [f for f in p.rglob("*") if f.is_file()]

@@ -4,7 +4,7 @@ Capability extension: the reference is monochrome end to end (its
 kernels emit single-channel winding/fill, ``render_glyph.zig:20-33``).
 fontrx renders COLR v0 color glyphs by rastering every layer of every
 glyph in ONE batched coverage launch (layers are just extra rows in
-the segment tensor — the TPU-friendly shape) and folding the layer
+the segment tensor — the accelerator-friendly shape) and folding the layer
 stack src-over on device.
 
 Per base glyph all layers share one grid (anchored at the union of the
@@ -30,6 +30,7 @@ Two surfaces:
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -38,15 +39,15 @@ from fontrx.kernels.exactmath import div_cr, sqrt_cr
 from fontrx.kernels.grid import RasterGrid
 from fontrx.pack.segments import pack_glyphs
 
-# TPU VPU division/sqrt are faithfully-rounded, not IEEE-correct
-# (fontrx/kernels/exactmath.py) — the first real-TPU run of the color
-# gate caught 255/255 != 1.0 from an on-device constant divide.  The
-# color path therefore (a) folds all CONSTANT color-space divisions on
-# the host (numpy is IEEE), and (b) routes per-pixel divides/sqrts
-# through the correctly-rounded emulation, which is bit-identical to
-# the plain ops on CPU backends.  Remaining documented inexactness on
-# TPU: transcendentals (arctan2 in sweep gradients, jax.image.resize
-# weights, jnp.interp's internal divide) follow the hardware libm.
+# XLA's f32 division and sqrt on the GPU are not IEEE-correct
+# (fontrx/kernels/exactmath.py), and an on-device constant divide can
+# make 255/255 != 1.0.  The color path therefore (a) folds all CONSTANT
+# color-space divisions on the host (numpy is IEEE), and (b) routes
+# per-pixel divides/sqrts through the correctly-rounded emulation,
+# which is bit-identical to the plain ops on the CPU.  Remaining
+# documented inexactness on the device: transcendentals (arctan2 in
+# sweep gradients, jax.image.resize weights, jnp.interp's internal
+# divide) follow the device's math library.
 
 
 def _interp_stops(t, stops):
@@ -181,8 +182,8 @@ def _eval_node(node, cov, grid, tile: int):
         if paint[0] == "solid":
             r, g_, b, a = paint[1]
             # constant color-space divisions fold on the HOST (IEEE):
-            # TPU's on-device divide is 1-ulp faithful and turned
-            # 255/255 into 0.99999994 (caught by the color64 gate)
+            # an on-device divide need not be correctly rounded and
+            # can turn 255/255 into 0.99999994
             av = cov[row][..., None] * np.float32(a / 255.0)
             rgb = jnp.asarray(
                 np.asarray((r, g_, b), np.float32) / np.float32(255.0)
@@ -443,7 +444,8 @@ def _colormatrix(img, kind: str, values):
     vec = jnp.concatenate(
         [straight, a, jnp.ones_like(a)], axis=-1)  # [T, T, 5]
     out = jnp.clip(
-        jnp.einsum("ijk,lk->ijl", vec, jnp.asarray(m, jnp.float32)),
+        jnp.einsum("ijk,lk->ijl", vec, jnp.asarray(m, jnp.float32),
+                   precision=jax.lax.Precision.HIGHEST),
         0.0, 1.0)
     oa = out[..., 3:]
     return jnp.concatenate([out[..., :3] * oa, oa], axis=-1)
@@ -698,8 +700,6 @@ def color_glyph_tiles(
                 tw = max(1, min(tile, int(round(img.shape[1] * k))))
                 f = jnp.asarray(
                     np.asarray(img, np.float32) / np.float32(255.0))
-                import jax
-
                 f = jax.image.resize(f, (th, tw, 4), method="linear")
                 prem = jnp.concatenate(
                     [f[..., :3] * f[..., 3:], f[..., 3:]], axis=-1)
@@ -802,9 +802,9 @@ def color_glyph_tiles(
 
     batch = pack_glyphs(glyphs)
     cov = engine.coverage_batch(
-        jnp.asarray(batch.segments),
-        jnp.array([g.min_x for g in row_grid], jnp.int32),
-        jnp.array([g.max_y for g in row_grid], jnp.int32),
+        batch.segments,
+        np.array([g.min_x for g in row_grid], np.int32),
+        np.array([g.max_y for g in row_grid], np.int32),
         row_grid[0].scale if row_grid else np.float32(size / upem),
         height=tile,
         width=tile,

@@ -1,299 +1,95 @@
 """High-level raster engine.
 
-Backend-dispatching façade over the winding kernels: picks the Pallas
-TPU kernel on TPU, the jnp kernel elsewhere (or Pallas-interpret for
-debugging — the validation-layer analog, SURVEY §5.2), handles grid
-padding/cropping and device residency.
+The one place that decides which code rasters.  On the GPU and on the
+CPU it is the row-binned plain XLA route (``kernels/winding.py``); any
+other platform is an error, never a silent fallback.  A Pallas kernel
+through Triton that fused phase A with per-pixel compares was measured
+against this route on an H100 and lost on pages and tied on atlases
+(``PERF.md``), so it was removed.
 
-Shape discipline: every call is bucketed by ``(B, S, H, W)`` so XLA
-compiles once per bucket (the analog of the reference building three
-pipelines once and reusing them per frame, ``src/Appli.zig:411-428``).
+Shape discipline: segment streams and per-job capacities are bucketed
+to powers of two (``kernels/winding.py:bucket``), so repeated atlases
+and interactive edits reuse compiled code (the analog of the reference
+building its pipelines once, ``src/Appli.zig:411-428``).
 """
 
 from __future__ import annotations
-
-from dataclasses import dataclass
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
 from fontrx.kernels.grid import RasterGrid
-from fontrx.kernels.winding_jnp import winding_batch as _winding_jnp_batch
-from fontrx.kernels.winding_pallas import TILE_H, TILE_W
-from fontrx.kernels.winding_pallas_v2 import (
-    STRIP_ROWS,
-    winding_pallas_v2_batch,
+from fontrx.kernels.winding import (
+    RowBins,
+    bin_glyph_rows,
+    full_rows,
+    winding_bins_xla,
 )
 from fontrx.pack.segments import PackedBatch
 from fontrx.utils.log import get_logger
 
 log = get_logger("Engine")
 
-BACKEND_AUTO = "auto"
-BACKEND_PALLAS = "pallas"
-BACKEND_JNP = "jnp"
-BACKEND_INTERPRET = "interpret"
-
-# per-call glyph cap: the Pallas kernels keep per-glyph grid anchors
-# resident in SMEM (~1 MB); larger batches split into sub-launches
-MAX_KERNEL_BATCH = 1024
+PLATFORMS = ("gpu", "cpu")
 
 
-def default_backend() -> str:
-    return BACKEND_PALLAS if jax.default_backend() == "tpu" else BACKEND_JNP
+def check_platform() -> str:
+    """The platform JAX runs on, if fontrx has a route for it."""
+    platform = jax.default_backend()
+    if platform not in PLATFORMS:
+        raise RuntimeError(
+            f"fontrx has no raster route for platform {platform!r}")
+    return platform
 
 
-@dataclass(frozen=True)
-class DenseWindows:
-    """Pack-time acceleration structure for the dense (single-tile)
-    winding path: segments re-streamed window-major so each chunk's
-    phase A runs only on the pixel-row window it can cross (plus lane
-    groups that split the 128 row lanes across chunk streams).  Built
-    by :meth:`RasterEngine.pack_windows` from HOST segments; pass to
-    :meth:`RasterEngine.winding_batch` via ``windows=``.  Bit-identical
-    to the unwindowed path (same per-(segment, row) float program;
-    winding folds are integer adds) — device-gated in the full gate.
-    Measured (tpu_dense_windows_ab.py): CJK 1000x288 atlas @32px
-    3.92 -> 2.40 ms, @64px 5.70 -> 4.82 ms."""
-
-    segments_win: jax.Array   # [B, n_windows * cap, 3, 2]
-    n_windows: int
-    cap: int
-    win_rows: int
-    groups: int
-    seg_chunk: int
-    height: int
-
-
-@dataclass
 class RasterEngine:
-    """Stateless-ish raster dispatcher.
+    """Stateless raster dispatcher over the XLA route."""
 
-    ``backend``: "auto" | "pallas" | "jnp" | "interpret".
-    ``exact`` (default on): correctly-rounded div/sqrt in the Pallas
-    root solve — bit-parity with the CPU oracle even on TPU tie pixels;
-    measured at zero throughput cost (see ``fontrx.kernels.exactmath``).
-    """
-
-    backend: str = BACKEND_AUTO
-    exact: bool = True
-
-    def _resolve(self) -> str:
-        if self.backend == BACKEND_AUTO:
-            return default_backend()
-        return self.backend
+    def __init__(self):
+        self.platform = check_platform()
 
     # -- core entry points -------------------------------------------------
 
-    def pack_windows(
-        self, segments, min_x, max_y, scale, *, height: int,
-    ) -> DenseWindows | None:
-        """Build the window-packed segment stream for a dense-path
-        raster (``height``/``width`` <= 128 single-tile atlases) from
-        HOST segments.  Returns None when the backend or shape cannot
-        use it.  One packing serves every MSAA sample offset in
-        [-1, 1] (the pack carries a one-pixel row margin)."""
-        if self._resolve() not in (BACKEND_PALLAS, BACKEND_INTERPRET):
-            return None
-        if height > STRIP_ROWS:
-            return None
-        segments = np.asarray(segments, np.float32)
-        if segments.shape[1] < 128:
-            # sparse buckets measured WORSE under windows — the
-            # groups*seg_chunk cap quantum (256 @64px) outpads the
-            # row cull when real capacity is 64
-            # (tpu_fullfont_windows.py: DejaVu cap-64 bucket
-            # 15.6 -> 24.9 ms @64px, 8.7 -> 14.4 @32px, 0 mismatches)
-            return None
-        from fontrx.kernels.winding_dense import (
-            dense_win_tuning,
-            pack_dense_windows,
-        )
+    def bins(self, segments, max_y, scale, *, height: int) -> RowBins:
+        """Row bins of a glyph batch: culled on the host when the
+        inputs are concrete, every segment in every band when traced
+        (inside ``jit``/``shard_map``)."""
+        if isinstance(segments, jax.core.Tracer) or isinstance(
+                max_y, jax.core.Tracer):
+            return full_rows(segments, height)
+        return bin_glyph_rows(np.asarray(segments), np.asarray(max_y),
+                              float(scale), height)
 
-        win_rows, groups, seg_chunk = dense_win_tuning(height)
-        win, nw, cap = pack_dense_windows(
-            segments,
-            np.asarray(min_x), np.asarray(max_y), float(scale),
-            height, win_rows=win_rows, seg_chunk=seg_chunk,
-            groups=groups,
-        )
-        return DenseWindows(
-            segments_win=jnp.asarray(win), n_windows=nw, cap=cap,
-            win_rows=win_rows, groups=groups, seg_chunk=seg_chunk,
-            height=height,
-        )
+    def winding_bins(self, bins: RowBins, min_x, max_y, scale, *,
+                     width: int, sample_offset=(0.0, 0.0)) -> jax.Array:
+        """Winding maps of binned jobs: int32 ``[B, n_bands * 16, W]``."""
+        with jax.profiler.TraceAnnotation("fontrx/raster"):
+            return winding_bins_xla(
+                bins.soa, bins.start, bins.count,
+                jnp.asarray(min_x, jnp.int32), jnp.asarray(max_y, jnp.int32),
+                jnp.asarray(scale, jnp.float32),
+                jnp.asarray(sample_offset, jnp.float32),
+                n_bands=bins.n_bands, cap=bins.cap, width=width,
+            )
 
     def winding_batch(
-        self,
-        segments,
-        min_x,
-        max_y,
-        scale,
-        *,
-        height: int,
-        width: int,
-        windows: DenseWindows | None = None,
+        self, segments, min_x, max_y, scale, *, height: int, width: int,
+        sample_offset=(0.0, 0.0),
     ) -> jax.Array:
-        """Batched winding maps: ``[B, H, W]`` int32.  H/W are padded to
-        kernel tiles internally; the returned array is cropped back.
-
-        ``windows``: optional pack-time :class:`DenseWindows` (from
-        :meth:`pack_windows` over the same segments/anchors/scale) —
-        routes the dense path through the window-packed kernel."""
-        backend = self._resolve()
-        # profiler annotation (SURVEY §5.1): raster phases show up in
-        # TPU traces under fontrx/raster
-        with jax.profiler.TraceAnnotation(
-            f"fontrx/raster[{backend}] {height}x{width}"
-        ):
-            ph = _round_up(height, TILE_H)
-            pw = _round_up(width, TILE_W)
-            segments = jnp.asarray(segments, jnp.float32)
-            min_x = jnp.asarray(min_x, jnp.int32)
-            max_y = jnp.asarray(max_y, jnp.int32)
-            if segments.shape[0] > MAX_KERNEL_BATCH:
-                parts = [
-                    self.winding_batch(
-                        segments[i : i + MAX_KERNEL_BATCH],
-                        min_x[i : i + MAX_KERNEL_BATCH],
-                        max_y[i : i + MAX_KERNEL_BATCH],
-                        scale,
-                        height=height,
-                        width=width,
-                        windows=None if windows is None else DenseWindows(
-                            windows.segments_win[i : i + MAX_KERNEL_BATCH],
-                            windows.n_windows, windows.cap,
-                            windows.win_rows, windows.groups,
-                            windows.seg_chunk, windows.height,
-                        ),
-                    )
-                    for i in range(0, segments.shape[0], MAX_KERNEL_BATCH)
-                ]
-                return jnp.concatenate(parts, axis=0)
-            if backend in (BACKEND_PALLAS, BACKEND_INTERPRET) and (
-                height <= STRIP_ROWS and width <= 128
-            ):
-                # single-tile rasters (any capacity): the column-major
-                # kernel — phase B compares whole (C, R) crossing
-                # tensors against per-column scalars (no
-                # lane-broadcasts/transposes), rasters the TRUE width
-                # (no 128-lane padding), and culls per-chunk crossing
-                # x-windows.  Bit-identical to the row-major kernel
-                # (shared phase_a_roots float program; device-checked
-                # 0 mismatches).  tools/tpu_probes/tpu_dense.py:
-                # 288-seg @64px atlas 43.6 -> 8.2 ms (x-sorted packs);
-                # tpu_dense_fullfont.py: the SPARSE full-font cap-64
-                # bucket 38.2 -> 15.7 ms @64px and 37.9 -> 11.0 @32px
-                # (2.4-3.5x over the gg16/banded v2 paths)
-                from fontrx.kernels.winding_dense import (
-                    dense_tuning,
-                    winding_dense_batch,
-                    winding_dense_win_batch,
-                )
-
-                pw8 = _round_up(width, 8)
-                if windows is not None and windows.height == height:
-                    # window-packed stream from pack time: per-chunk
-                    # ROW culling + lane-group chunk splitting
-                    # (bit-identical; measured CJK @32px 3.92 -> 2.40,
-                    # @64px 5.70 -> 4.82 ms, tpu_dense_windows_ab.py)
-                    out = winding_dense_win_batch(
-                        windows.segments_win, min_x, max_y,
-                        jnp.float32(scale), height=height, width=pw8,
-                        n_windows=windows.n_windows, cap=windows.cap,
-                        interpret=backend == BACKEND_INTERPRET,
-                        exact=self.exact, seg_chunk=windows.seg_chunk,
-                        col_block=8, groups=windows.groups,
-                        win_rows=windows.win_rows,
-                    )
-                    if (STRIP_ROWS, pw8) != (height, width):
-                        out = out[:, :height, :width]
-                    return out
-                # lane packing: tiles <= 64/32 rows leave 1/2 / 3/4 of
-                # the 128 row lanes idle; packing 2/4 consecutive
-                # segment chunks of the SAME glyph into lane groups
-                # fills them (same columns, same anchors — unlike the
-                # rejected glyph banding, no owner masks), halving/
-                # quartering phase-A AND phase-B element ops.
-                # Bit-identical (same per-(segment, row) float
-                # program; integer lane fold).  Device A/B
-                # (tpu_dense_lanepack.py): CJK @64px 8.2 -> 5.5 ms,
-                # @32px 6.6 -> 3.3 ms, 0 mismatches.
-                lane_pack, seg_chunk = dense_tuning(height)
-                out = winding_dense_batch(
-                    segments, min_x, max_y, jnp.float32(scale),
-                    height=height, width=pw8,
-                    interpret=backend == BACKEND_INTERPRET,
-                    exact=self.exact, seg_chunk=seg_chunk, col_block=8,
-                    lane_pack=lane_pack,
-                )
-                if (STRIP_ROWS, pw8) != (height, width):
-                    out = out[:, :height, :width]
-                return out
-            if backend in (BACKEND_PALLAS, BACKEND_INTERPRET):
-                # v2 always: its 128-row strips overpad small tiles, but
-                # per-pixel it is ~5x cheaper than v1, hull culls skip
-                # the padding rows, and only v2 carries the exact-math
-                # path (bit-parity with the oracle on TPU)
-                ph = _round_up(height, STRIP_ROWS)
-                out = winding_pallas_v2_batch(
-                    segments,
-                    min_x,
-                    max_y,
-                    jnp.float32(scale),
-                    height=ph,
-                    width=pw,
-                    interpret=backend == BACKEND_INTERPRET,
-                    exact=self.exact,
-                    # round-2 TPU sweeps (tools/tpu_probes/
-                    # tpu_headline_opt*, tpu_postsort_sweep,
-                    # tpu_gg16_confirm, /tmp/cjk_gg2 re-run recorded in
-                    # docs/RESULTS.md): carry sweep + group elision +
-                    # 32-segment chunks win on real-font tiles, and a
-                    # 256-wide column tile removes the carry iteration
-                    # when the raster is exactly one tile wide — all
-                    # bit-identical.  Group size is capacity-adaptive:
-                    # y-sorted sparse glyphs (cap <= 128) elide best at
-                    # 16-segment groups (+9.7% headline, +4.6% 64px
-                    # atlas vs gg=8), while dense high-segment content
-                    # has ~100% group activity and guards only add
-                    # read-modify-writes (CJK 288-seg @64px: gg=0
-                    # 45.5 ms, gg=8 58.7 ms) — the same lesson as the
-                    # page path (scene/page.py PAGE_TUNING)
-                    # Round-3 dense regime (cap > 128, the CJK shape):
-                    # carry-free sweep + 64-segment chunks + 16-row
-                    # sub-strip windows (row_windows=8) — phase B only
-                    # touches the windows a chunk's hull crosses
-                    # (tools/tpu_probes/tpu_rowwin*.py: 288-seg @64px
-                    # atlas 43.6 -> 23.7 ms, @32px 43.9 -> 18.8 ms,
-                    # bit-identical; sparse tiles LOSE with windows —
-                    # 0.65 -> 1.27 ms on the headline — so group
-                    # elision stays their path)
-                    guard=segments.shape[1] <= 128,
-                    group_guard=16 if segments.shape[1] <= 128 else 0,
-                    seg_chunk=32 if segments.shape[1] <= 128 else 64,
-                    row_windows=0 if segments.shape[1] <= 128 else 8,
-                    tile_w=256 if pw == 256 else TILE_W,
-                )
-            elif backend == BACKEND_JNP:
-                out = _winding_jnp_batch(
-                    segments, min_x, max_y, jnp.float32(scale),
-                    height=ph, width=pw,
-                )
-            else:
-                raise ValueError(f"unknown backend {backend!r}")
-            if (ph, pw) != (height, width):
-                out = out[:, :height, :width]
-            return out
+        """Batched winding maps: int32 ``[B, H, W]``."""
+        bins = self.bins(segments, max_y, scale, height=height)
+        return self.winding_bins(
+            bins, min_x, max_y, scale, width=width,
+            sample_offset=sample_offset)[:, :height]
 
     def winding_glyph(self, segments, grid: RasterGrid) -> jax.Array:
         """Single-glyph winding map over an oracle-convention grid
         (BASELINE config 1)."""
         out = self.winding_batch(
-            jnp.asarray(segments)[None],
-            jnp.array([grid.min_x], jnp.int32),
-            jnp.array([grid.max_y], jnp.int32),
+            np.asarray(segments)[None],
+            np.array([grid.min_x], np.int32),
+            np.array([grid.max_y], np.int32),
             grid.scale,
             height=grid.height,
             width=grid.width,
@@ -320,48 +116,11 @@ class RasterEngine:
         )
         return out, grids
 
-    def winding_packed_banded(
-        self, glyphs, font_size: int, units_per_em: int, tile: int
-    ) -> tuple[jax.Array, list[RasterGrid]]:
-        """Small-tile atlas raster (per-glyph tiles).
-
-        HISTORY: through round 2 this packed ``128/tile`` glyphs per
-        128-row strip (``winding_pallas_banded_batch``) to eliminate
-        strip padding.  The round-3 column-major kernel made banding
-        obsolete: phase B scales with the TRUE tile width and with
-        total segments x strip lanes — a product banding cannot reduce
-        (measured: banded-dense 15.1 ms vs plain 15.6 @64px, and
-        WORSE @32px, 13.2 vs 10.7; the round-2 row-major banded path
-        measures 36.8 ms on the same bucket — tpu_dense_banded.py).
-        This method now delegates to the plain engine path with
-        x-sorted packing; both banded kernels remain available for
-        A/Bs (``winding_pallas_banded_batch``,
-        ``winding_dense_banded_batch``)."""
-        from fontrx.pack.segments import pack_glyphs
-
-        grids = [
-            RasterGrid.fixed_tile(
-                (g.box.x_min, g.box.y_min, g.box.x_max, g.box.y_max),
-                font_size, units_per_em, tile,
-            )
-            for g in glyphs
-        ]
-        batch = pack_glyphs(glyphs, sort="x")
-        out = self.winding_batch(
-            batch.segments,
-            np.array([g.min_x for g in grids], np.int32),
-            np.array([g.max_y for g in grids], np.int32),
-            grids[0].scale if grids else 1.0,
-            height=tile,
-            width=tile,
-        )
-        return out, grids
-
     def winding_split(
         self, split, font_size: int, units_per_em: int, tile: int
     ) -> tuple[jax.Array, list[RasterGrid]]:
         """Raster a :class:`~fontrx.pack.segments.SplitBatch`: one
-        small-capacity kernel launch over all rows, then an on-device
+        small-capacity launch over all rows, then an on-device
         ``segment_sum`` folds each glyph's rows back into its winding
         map — exact, because winding contributions are integer adds
         that commute across segment subsets.  Returns ``([G, T, T]
@@ -395,9 +154,7 @@ class RasterEngine:
         small-capacity launch over all rows; single-row glyphs (the
         common case) pass through with NO fold, and ``r``-row glyphs
         fold with one dense ``reshape(n, r, T, T).sum(axis=1)`` per
-        distinct ``r`` — scatter-free, unlike :meth:`winding_split`'s
-        whole-atlas ``segment_sum`` (measured 76 ms vs sub-ms on a
-        6k-glyph set).  Returns ``([G, T, T] winding in hb.order, and
+        distinct ``r``.  Returns ``([G, T, T] winding in hb.order, and
         per-glyph grids)``; exact because winding contributions commute
         across segment subsets."""
         grids = [
@@ -430,214 +187,60 @@ class RasterEngine:
         out = parts[0] if len(parts) == 1 else jnp.concatenate(parts)
         return out, glyph_grids
 
-    # tiled-SDF dispatch knobs: the tpu_sdf_tiled/tiled2/tiled3 probe
-    # series' winner (8x16 tiles, chunk 16, count-sorted register
-    # binning, no unroll) — CJK @64px 132.9 -> 90.1 ms (1.47x),
-    # bit-identical; @32px every tiled config measured a wash
-    # (1.02-1.07x) so flat mode keeps that regime
-    SDF_TILE_H = 8
-    SDF_TILE_W = 16
-    SDF_SEG_CHUNK = 16
-    SDF_TILED_MIN_SIZE = 64
-    SDF_TILED_MIN_CAPACITY = 128
-
-    def pack_sdf(
-        self,
-        segments,
-        min_x,
-        max_y,
-        scale,
-        *,
-        height: int,
-        width: int,
-        spread_px: float = 8.0,
-        x_slack_px: float = 0.0,
-    ):
-        """Host-side tile packing for the tiled band-culled SDF path,
-        or ``None`` when the dispatch keeps flat mode (sparse batches,
-        sizes < 64, non-Pallas backends — the probed routing).  All
-        anchor inputs must be HOST arrays.  ``x_slack_px`` widens the
-        x test so one packing serves shifted ``min_x`` anchors (the
-        chained bench protocol)."""
-        if self._resolve() not in (BACKEND_PALLAS, BACKEND_INTERPRET):
-            return None
-        th, tw = self.SDF_TILE_H, self.SDF_TILE_W
-        host_segs = np.asarray(segments, np.float32)
-        flat_ok = (height == width
-                   and height & (height - 1) == 0
-                   and (height * width) % 1024 == 0)
-        if not (
-            flat_ok
-            and height >= self.SDF_TILED_MIN_SIZE
-            and host_segs.shape[1] >= self.SDF_TILED_MIN_CAPACITY
-            and height % th == 0 and width % tw == 0
-            and ((height // th) * (width // tw))
-            % (1024 // (th * tw)) == 0
-        ):
-            return None
-        from fontrx.kernels.sdf_pallas import pack_sdf_tiles
-
-        stream, cnts, tids, cap = pack_sdf_tiles(
-            host_segs, np.asarray(min_x), np.asarray(max_y),
-            float(scale), height, width, tile_h=th, tile_w=tw,
-            seg_chunk=self.SDF_SEG_CHUNK, spread_px=spread_px,
-            x_slack_px=x_slack_px, sort_tiles=True,
-        )
-        return (jnp.asarray(stream), jnp.asarray(cnts),
-                jnp.asarray(tids), cap)
-
     def sdf_batch(
-        self,
-        segments,
-        min_x,
-        max_y,
-        scale,
-        *,
-        height: int,
-        width: int,
-        spread_px: float = 8.0,
-        pack=None,
+        self, segments, min_x, max_y, scale, *, height: int, width: int,
     ) -> jax.Array:
-        """Batched SDF atlas dispatch.
+        """Batched SDF atlas: float32 ``[B, H, W]`` signed pixel
+        distances, unclamped (callers clamp at their spread when
+        quantizing)."""
+        from fontrx.kernels.sdf import sdf_batch
 
-        On the Pallas backend the DENSE regime (capacity >= 128
-        segments, square power-of-two tiles >= 64 px) routes through
-        the 2-D-tiled band-culled kernel when ``pack`` (from
-        :meth:`pack_sdf` over the same segments/anchors) is given —
-        bit-identical to flat mode, measured 1.47x on the CJK @64px
-        workload (tpu_sdf_tiled3.py); otherwise flat-pixel mode, and
-        non-Pallas backends use the jnp kernel."""
-        from fontrx.kernels.sdf import sdf_batch as _sdf_jnp
-        from fontrx.kernels.sdf_pallas import (
-            sdf_pallas_batch,
-            sdf_pallas_tiled_batch,
+        return sdf_batch(
+            jnp.asarray(segments, jnp.float32),
+            jnp.asarray(min_x, jnp.int32), jnp.asarray(max_y, jnp.int32),
+            jnp.float32(scale), height=height, width=width,
         )
-
-        backend = self._resolve()
-        if backend not in (BACKEND_PALLAS, BACKEND_INTERPRET):
-            # jnp path: unclamped distances (callers clamp at their
-            # spread when quantizing)
-            return _sdf_jnp(
-                jnp.asarray(segments), jnp.asarray(min_x),
-                jnp.asarray(max_y), jnp.float32(scale),
-                height=height, width=width,
-            )
-        interpret = backend == BACKEND_INTERPRET
-        if pack is not None:
-            stream, cnts, tids, cap = pack
-            return sdf_pallas_tiled_batch(
-                jnp.asarray(segments), stream, cnts, tids,
-                jnp.asarray(min_x), jnp.asarray(max_y),
-                jnp.float32(scale), height=height, width=width,
-                cap=cap, tile_h=self.SDF_TILE_H,
-                tile_w=self.SDF_TILE_W,
-                seg_chunk=self.SDF_SEG_CHUNK, spread_px=spread_px,
-                interpret=interpret, exact=self.exact,
-            )
-        flat_ok = (height == width
-                   and height & (height - 1) == 0
-                   and (height * width) % 1024 == 0)
-        if flat_ok:
-            return sdf_pallas_batch(
-                jnp.asarray(segments), jnp.asarray(min_x),
-                jnp.asarray(max_y), jnp.float32(scale),
-                height=height, width=width, flat=True,
-                spread_px=spread_px, interpret=interpret,
-                exact=self.exact,
-            )
-        w = ((width + 127) // 128) * 128
-        return sdf_pallas_batch(
-            jnp.asarray(segments), jnp.asarray(min_x),
-            jnp.asarray(max_y), jnp.float32(scale),
-            height=height, width=w, spread_px=spread_px,
-            interpret=interpret, exact=self.exact,
-        )[:, :, :width]
 
     def coverage_batch(
-        self,
-        segments,
-        min_x,
-        max_y,
-        scale,
-        *,
-        height: int,
-        width: int,
-        samples: int = 2,
-        fused: bool | None = None,
+        self, segments, min_x, max_y, scale, *, height: int, width: int,
+        samples: int = 2, x_shift: float = 0.0,
     ) -> jax.Array:
-        """Batched k x k supersampled coverage (MSAA analog).
+        """Batched k x k supersampled coverage (MSAA analog): float32
+        ``[B, H, W]`` in [0, 1], as k^2 traced-offset passes of the
+        winding route over one binning (one compile: the offset is a
+        traced input).  ``x_shift`` moves the whole
+        lattice horizontally (the LCD channels).  Bit-identical to
+        ``kernels.coverage.coverage_batch``: each pass is the route's
+        fill at that offset, and the mean of k^2 {0, 1} values is exact
+        in f32."""
+        from fontrx.kernels.coverage import sample_offsets
 
-        On the Pallas backends two strategies exist (``fused``):
+        bins = self.bins(segments, max_y, scale, height=height)
+        offsets = sample_offsets(samples) + np.array([x_shift, 0.0],
+                                                     np.float32)
+        hits = None
+        for off in offsets:
+            w = self.winding_bins(
+                bins, min_x, max_y, scale, width=width, sample_offset=off)
+            hit = (w[:, :height] != 0).astype(jnp.int32)
+            hits = hit if hits is None else hits + hit
+        return hits.astype(jnp.float32) / jnp.float32(samples * samples)
 
-        - ``True``: the single-launch fused kernel
-          (``coverage_pallas_batch``): the per-row root solve is shared
-          across sub-column offsets, but each (chunk, sample, tile)
-          pays carry/guard branches — so it wins when there are few
-          column tiles and loses at page widths.
-        - ``False``: k^2 sub-pixel-offset passes of the tuned v2
-          winding kernel (``coverage_batch_v2``) — the page path's MSAA
-          strategy (``scene/page.py:215-231``).  The offset is a traced
-          input, so the kernel compiles once.
-
-        ``None`` (default) picks by the measured TPU crossover
-        (``tools/tpu_probes/tpu_coverage_sweep.py``: fused 3.0x faster
-        at 128 px wide, multipass 2.3x faster at 2048): fused up to two
-        column tiles, multipass beyond.  Both strategies are
-        bit-identical to the jnp multipass reference.
-        """
-        from fontrx.kernels.coverage import (
-            coverage_batch as _multipass,
-            coverage_batch_dense,
-            coverage_batch_v2,
-        )
-        from fontrx.kernels.coverage_pallas import coverage_pallas_batch
-
-        backend = self._resolve()
-        segments = jnp.asarray(segments, jnp.float32)
-        min_x = jnp.asarray(min_x, jnp.int32)
-        max_y = jnp.asarray(max_y, jnp.int32)
-        if backend in (BACKEND_PALLAS, BACKEND_INTERPRET):
-            if height <= STRIP_ROWS and width <= 128 and fused is None:
-                # round 3: small-tile MSAA rides k^2 offset passes of
-                # the column-major dense kernel — bit-identical to the
-                # fused/multipass strategies (per-offset fills are the
-                # dense kernel's) and 3.2x/4.8x faster on 1000-glyph
-                # 64px/32px coverage atlases (tpu_cov_dense.py: fused
-                # 33.2 -> 10.3 ms @64, 33.9 -> 7.1 @32)
-                pw8 = _round_up(width, 8)
-                cov = coverage_batch_dense(
-                    segments, min_x, max_y, jnp.float32(scale),
-                    height=height, width=pw8, samples=samples,
-                    exact=self.exact,
-                    interpret=backend == BACKEND_INTERPRET,
-                )
-                if (STRIP_ROWS, pw8) != (height, width):
-                    cov = cov[:, :height, :width]
-                return cov
-            ph = _round_up(height, STRIP_ROWS)
-            pw = _round_up(width, TILE_W)
-            if fused is None:
-                fused = pw <= 256
-            if fused:
-                out = coverage_pallas_batch(
-                    segments, min_x, max_y, jnp.float32(scale),
-                    height=ph, width=pw, samples=samples, exact=self.exact,
-                    interpret=backend == BACKEND_INTERPRET,
-                )
-            else:
-                out = coverage_batch_v2(
-                    segments, min_x, max_y, jnp.float32(scale),
-                    height=ph, width=pw, samples=samples, exact=self.exact,
-                    guard=pw > 512 or segments.shape[1] > 256,
-                    interpret=backend == BACKEND_INTERPRET,
-                )
-            if (ph, pw) != (height, width):
-                out = out[:, :height, :width]
-            return out
-        return _multipass(
-            segments, min_x, max_y, jnp.float32(scale),
-            height=height, width=width, samples=samples,
-        )
+    def lcd_coverage_batch(
+        self, segments, min_x, max_y, scale, *, height: int, width: int,
+        samples: int = 2,
+    ) -> jax.Array:
+        """LCD subpixel coverage: float32 ``[B, H, W, 3]`` — per RGB
+        channel, the k x k coverage lattice shifted to that channel's
+        horizontal subpixel center (R -1/3 px, G 0, B +1/3 px), the
+        classic 3x1 striped-panel filter.  A capability extension (the
+        reference has no subpixel rendering)."""
+        return jnp.stack([
+            self.coverage_batch(
+                segments, min_x, max_y, scale, height=height, width=width,
+                samples=samples, x_shift=shift)
+            for shift in (-1.0 / 3.0, 0.0, 1.0 / 3.0)
+        ], axis=-1)
 
     # -- fill conversions --------------------------------------------------
 
@@ -651,7 +254,3 @@ class RasterEngine:
         """The reference's winding visualization
         (``render_glyph.zig:28``)."""
         return jnp.clip(winding * 20 + 100, 0, 255).astype(jnp.uint8)
-
-
-def _round_up(n: int, m: int) -> int:
-    return ((n + m - 1) // m) * m

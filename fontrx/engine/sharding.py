@@ -1,35 +1,28 @@
 """Multi-device raster sharding.
 
-The reference is strictly single-GPU (SURVEY §2.8); this module is the
-driver-mandated TPU-native scale-out: a ``jax.sharding.Mesh`` over a
-``glyphs`` axis, with the batch dimension of every raster input sharded
-across devices so each chip rasterizes its slice of the atlas and the
-sheet is assembled by XLA's all-gather over ICI (the analog of
-swapchain present, SURVEY §5.8).
+The reference is strictly single-GPU (SURVEY §2.8); this module splits
+raster work over a ``jax.sharding.Mesh``: a ``glyphs`` axis that shards
+the batch dimension of every raster input (each device rasters its
+slice of the atlas; XLA all-gathers only if the caller asks for a
+replicated result), and a ``rows`` axis of pixel-row bands (one large
+page).  Winding is row-local and per-glyph, so no collective runs in
+the hot loop.
 
-Design notes (TPU-first):
-- Glyph-batch sharding is embarrassingly parallel — no collectives in
-  the hot loop; XLA inserts a single all-gather only if the caller asks
-  for a replicated result.
-- ``shard_map`` + the Pallas kernel composes: each device runs the same
-  static-shape kernel on its ``B/n`` shard.
-- Tested on a virtual 8-device CPU mesh
-  (``--xla_force_host_platform_device_count``); the driver dry-runs the
-  same path via ``__graft_entry__.dryrun_multichip``.
+Every helper runs the XLA route (``kernels/winding.py``) inside
+``shard_map``.  Inside a trace the segments are device arrays, so each
+shard bins them unculled (``kernels/winding.py:full_rows``).  Tested on
+a virtual 8-device CPU mesh (``--xla_force_host_platform_device_count``);
+``__graft_entry__.dryrun_multichip`` runs the same path.
 """
 
 from __future__ import annotations
-
-import functools
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from fontrx.kernels.winding_jnp import winding_batch as _winding_jnp_batch
-from fontrx.kernels.winding_pallas import winding_pallas_batch
-from fontrx.kernels.winding_pallas_v2 import winding_pallas_v2_batch
+from fontrx.kernels.winding import full_rows, winding_bins_xla
 from fontrx.utils.log import get_logger
 
 log = get_logger("Sharding")
@@ -63,82 +56,54 @@ def make_mesh_2d(
 
 def shard_batch(mesh: Mesh, *arrays):
     """Place arrays with their leading (glyph) dim sharded over the
-    mesh — the TPU analog of per-glyph staging-buffer uploads
-    (``src/Appli.zig:243-275``), except the 'upload' lands pre-sharded."""
+    mesh (the analog of per-glyph staging-buffer uploads,
+    ``src/Appli.zig:243-275``, except the upload lands pre-sharded)."""
     sharding = NamedSharding(mesh, P(GLYPH_AXIS))
     return tuple(jax.device_put(a, sharding) for a in arrays)
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "height", "width", "mesh", "use_pallas", "replicate_out", "interpret",
-    ),
-)
+def _winding(seg, mx, my, scale, height, width, sample_offset=(0.0, 0.0)):
+    """Unculled winding maps of one shard."""
+    bins = full_rows(seg, height)
+    return winding_bins_xla(
+        bins.soa, bins.start, bins.count, mx, my,
+        jnp.asarray(scale, jnp.float32),
+        jnp.asarray(sample_offset, jnp.float32),
+        n_bands=bins.n_bands, cap=bins.cap, width=width,
+    )[:, :height]
+
+
+def _glyph_map(fn, mesh, n_in):
+    spec = P(GLYPH_AXIS)
+    return jax.shard_map(
+        fn, mesh=mesh, in_specs=(spec,) * n_in, out_specs=spec,
+        # the kernels build loop carries from shard-agnostic zeros;
+        # varying-axis tracking would demand pvary noise inside them
+        check_vma=False,
+    )
+
+
 def winding_sharded(
-    segments,
-    min_x,
-    max_y,
-    scale,
-    *,
-    height: int,
-    width: int,
-    mesh: Mesh,
-    use_pallas: bool = True,
+    segments, min_x, max_y, scale, *, height: int, width: int, mesh: Mesh,
     replicate_out: bool = False,
-    interpret: bool = False,
 ):
     """Batched winding maps with the glyph axis sharded over ``mesh``.
 
     ``B`` must divide by the mesh size (pad with empty glyphs via
     ``pack_glyphs(pad_batch_to=...)``).  Returns ``[B, H, W]`` int32 —
     sharded over glyphs, or replicated when ``replicate_out`` (one
-    all-gather over ICI).
+    all-gather).
     """
-    if use_pallas:
-        def local(seg, mx, my):
-            return winding_pallas_batch(
-                seg, mx, my, scale, height=height, width=width,
-                interpret=interpret,
-            )
-    else:
-        def local(seg, mx, my):
-            return _winding_jnp_batch(
-                seg, mx, my, scale, height=height, width=width
-            )
-
-    spec = P(GLYPH_AXIS)
-    out_spec = P() if replicate_out else spec
-    fn = jax.shard_map(
-        local,
-        mesh=mesh,
-        in_specs=(spec, spec, spec),
-        out_specs=spec,
-        # the kernels build loop carries from shard-agnostic zeros;
-        # varying-axis tracking would demand pvary noise inside them
-        check_vma=False,
-    )
-    out = fn(segments, min_x, max_y)
+    out = _glyph_map(
+        lambda seg, mx, my: _winding(seg, mx, my, scale, height, width),
+        mesh, 3)(segments, min_x, max_y)
     if replicate_out:
         out = jax.lax.with_sharding_constraint(out, NamedSharding(mesh, P()))
     return out
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=("height", "width", "mesh", "use_pallas", "interpret"),
-)
 def winding_sharded_2d(
-    segments,
-    min_x,
-    max_y,
-    scale,
-    *,
-    height: int,
-    width: int,
-    mesh: Mesh,
-    use_pallas: bool = True,
-    interpret: bool = False,
+    segments, min_x, max_y, scale, *, height: int, width: int, mesh: Mesh,
 ):
     """Winding maps sharded over a 2-D (glyphs x row-bands) mesh.
 
@@ -151,44 +116,13 @@ def winding_sharded_2d(
     replicated along rows (small) and sharded along glyphs.
     """
     n_rows = mesh.shape[ROW_AXIS]
-    assert height % n_rows == 0, (height, n_rows)
+    if height % n_rows:
+        raise ValueError(f"height {height} must divide by {n_rows} row shards")
     band_h = height // n_rows
-
-    # Kernel routing by band height: the v2 carry-sweep kernel owns
-    # 128-row strips; thinner bands (sub-128) go to the v1 tile kernel
-    # (8-row tiles) rather than tripping v2's strip assertion.
-    from fontrx.kernels.winding_pallas import TILE_H as _V1_TILE_H
-    from fontrx.kernels.winding_pallas_v2 import STRIP_ROWS as _V2_STRIP
-
-    if use_pallas:
-        if band_h % _V2_STRIP == 0:
-            def kernel(seg, mx, my):
-                return winding_pallas_v2_batch(
-                    seg, mx, my, scale, height=band_h, width=width,
-                    interpret=interpret,
-                )
-        elif band_h % _V1_TILE_H == 0:
-            def kernel(seg, mx, my):
-                return winding_pallas_batch(
-                    seg, mx, my, scale, height=band_h, width=width,
-                    interpret=interpret,
-                )
-        else:
-            raise ValueError(
-                f"band height {band_h} (height {height} / {n_rows} row "
-                f"shards) must be a multiple of {_V1_TILE_H} for the "
-                "Pallas path; pad height or use use_pallas=False"
-            )
-    else:
-        def kernel(seg, mx, my):
-            return _winding_jnp_batch(
-                seg, mx, my, scale, height=band_h, width=width
-            )
 
     def local(seg, mx, my):
         band = jax.lax.axis_index(ROW_AXIS)
-        my_band = my - band * band_h
-        return kernel(seg, mx, my_band)
+        return _winding(seg, mx, my - band * band_h, scale, band_h, width)
 
     fn = jax.shard_map(
         local,
@@ -201,191 +135,50 @@ def winding_sharded_2d(
 
 
 def sdf_sharded(
-    segments,
-    min_x,
-    max_y,
-    scale,
-    *,
-    height: int,
-    width: int,
-    mesh: Mesh,
-    use_pallas: bool = True,
-    interpret: bool = False,
-    flat: bool = False,
+    segments, min_x, max_y, scale, *, height: int, width: int, mesh: Mesh,
 ):
     """SDF atlas with the glyph axis sharded over ``mesh`` — the same
-    embarrassing data parallelism as :func:`winding_sharded` (each chip
-    computes its batch slice; no collectives in the hot loop).  Returns
+    embarrassing data parallelism as :func:`winding_sharded`.  Returns
     float32 ``[B, H, W]`` signed distances, glyph-sharded."""
-    if use_pallas:
-        from fontrx.kernels.sdf_pallas import sdf_pallas_batch
+    from fontrx.kernels.sdf import sdf_batch
 
-        def local(seg, mx, my):
-            return sdf_pallas_batch(
-                seg, mx, my, scale, height=height, width=width,
-                interpret=interpret, flat=flat,
-            )
-    else:
-        from fontrx.kernels.sdf import sdf_batch
-
-        def local(seg, mx, my):
-            return sdf_batch(
-                seg, mx, my, scale, height=height, width=width
-            )
-
-    spec = P(GLYPH_AXIS)
-    fn = jax.shard_map(
-        local,
-        mesh=mesh,
-        in_specs=(spec, spec, spec),
-        out_specs=spec,
-        check_vma=False,
-    )
-    return fn(segments, min_x, max_y)
+    return _glyph_map(
+        lambda seg, mx, my: sdf_batch(seg, mx, my, scale, height=height,
+                                      width=width),
+        mesh, 3)(segments, min_x, max_y)
 
 
 def loopblinn_sharded(
-    tris,
-    classes,
-    min_x,
-    max_y,
-    scale,
-    *,
-    height: int,
-    width: int,
+    tris, classes, min_x, max_y, scale, *, height: int, width: int,
     mesh: Mesh,
-    use_pallas: bool = True,
-    interpret: bool = False,
 ):
     """Triangle-mesh fill with the glyph axis sharded over ``mesh``.
     Returns bool ``[B, H, W]`` coverage, glyph-sharded."""
-    from fontrx.kernels.loopblinn import (
-        loopblinn_batch,
-        loopblinn_pallas_batch,
-    )
+    from fontrx.kernels.loopblinn import loopblinn_batch
 
-    if use_pallas:
-        def local(tri, cls, mx, my):
-            return loopblinn_pallas_batch(
-                tri, cls, mx, my, scale, height=height, width=width,
-                interpret=interpret,
-            )
-    else:
-        def local(tri, cls, mx, my):
-            return loopblinn_batch(
-                tri, cls, mx, my, scale, height=height, width=width
-            )
-
-    spec = P(GLYPH_AXIS)
-    fn = jax.shard_map(
-        local,
-        mesh=mesh,
-        in_specs=(spec, spec, spec, spec),
-        out_specs=spec,
-        check_vma=False,
-    )
-    return fn(tris, classes, min_x, max_y)
+    return _glyph_map(
+        lambda tri, cls, mx, my: loopblinn_batch(
+            tri, cls, mx, my, scale, height=height, width=width),
+        mesh, 4)(tris, classes, min_x, max_y)
 
 
 def coverage_sharded(
-    segments,
-    min_x,
-    max_y,
-    scale,
-    *,
-    height: int,
-    width: int,
-    samples: int = 2,
-    mesh: Mesh,
-    fused: bool = True,
-    use_pallas: bool = True,
-    exact: bool = True,
-    interpret: bool = False,
+    segments, min_x, max_y, scale, *, height: int, width: int,
+    samples: int = 2, mesh: Mesh,
 ):
     """k x k supersampled coverage with the glyph axis sharded over
-    ``mesh`` — completes the sharded kernel-family set (winding, SDF,
-    Loop-Blinn, coverage).  Both single-device strategies compose with
-    ``shard_map`` unchanged: ``fused=True`` runs the single-launch
-    fused kernel per shard, ``fused=False`` the k^2-offset multipass of
-    the v2 winding kernel; ``use_pallas=False`` is the jnp multipass
-    reference (the bit-exactness anchor).  Returns float32
-    ``[B, H, W]`` coverage, glyph-sharded."""
-    if use_pallas and fused:
-        from fontrx.kernels.coverage_pallas import coverage_pallas_batch
+    ``mesh``: k^2 sub-pixel-offset passes of the winding route per
+    shard.  Returns float32 ``[B, H, W]`` coverage, glyph-sharded."""
+    from fontrx.kernels.coverage import sample_offsets
 
-        def local(seg, mx, my):
-            return coverage_pallas_batch(
-                seg, mx, my, scale, height=height, width=width,
-                samples=samples, exact=exact, interpret=interpret,
-            )
-    elif use_pallas:
-        from fontrx.kernels.coverage import coverage_batch_v2
+    def local(seg, mx, my):
+        hits = sum(
+            (_winding(seg, mx, my, scale, height, width, off) != 0)
+            .astype(jnp.int32)
+            for off in sample_offsets(samples))
+        return hits.astype(jnp.float32) / jnp.float32(samples * samples)
 
-        def local(seg, mx, my):
-            return coverage_batch_v2(
-                seg, mx, my, scale, height=height, width=width,
-                samples=samples, exact=exact, interpret=interpret,
-            )
-    else:
-        from fontrx.kernels.coverage import coverage_batch
-
-        def local(seg, mx, my):
-            return coverage_batch(
-                seg, mx, my, scale, height=height, width=width,
-                samples=samples,
-            )
-
-    spec = P(GLYPH_AXIS)
-    fn = jax.shard_map(
-        local,
-        mesh=mesh,
-        in_specs=(spec, spec, spec),
-        out_specs=spec,
-        check_vma=False,
-    )
-    return fn(segments, min_x, max_y)
-
-
-def dense_sharded(
-    segments,
-    min_x,
-    max_y,
-    scale,
-    *,
-    height: int,
-    width: int,
-    mesh: Mesh,
-    use_pallas: bool = True,
-    exact: bool = True,
-    interpret: bool = False,
-):
-    """The column-major dense-regime kernel
-    (``kernels/winding_dense.py``), glyph-sharded — the CJK-atlas
-    scale-out path.  Returns int32 ``[B, 128, width]`` like the
-    single-device kernel (callers slice to ``height``)."""
-    if use_pallas:
-        from fontrx.kernels.winding_dense import winding_dense_batch
-
-        def local(seg, mx, my):
-            return winding_dense_batch(
-                seg, mx, my, scale, height=height, width=width,
-                exact=exact, interpret=interpret,
-            )
-    else:
-        def local(seg, mx, my):
-            return _winding_jnp_batch(
-                seg, mx, my, scale, height=128, width=width
-            )
-
-    spec = P(GLYPH_AXIS)
-    fn = jax.shard_map(
-        local,
-        mesh=mesh,
-        in_specs=(spec, spec, spec),
-        out_specs=spec,
-        check_vma=False,
-    )
-    return fn(segments, min_x, max_y)
+    return _glyph_map(local, mesh, 3)(segments, min_x, max_y)
 
 
 def make_row_mesh(n_devices: int | None = None, devices=None) -> Mesh:
@@ -399,67 +192,26 @@ def make_row_mesh(n_devices: int | None = None, devices=None) -> Mesh:
 
 
 def page_rows_sharded(
-    flat_segments,
-    page_h: int,
-    page_w: int,
-    *,
-    mesh: Mesh,
-    exact: bool = True,
-    interpret: bool = False,
-    use_pallas: bool = True,
-    tuning=(0, 16, 128),
+    flat_segments, page_h: int, page_w: int, *, mesh: Mesh,
 ):
     """Direct-page raster with pixel-row BANDS sharded over ``mesh``:
     every device holds the full (replicated) page-space segment set and
     rasters its contiguous band of rows — winding is per-row, so bands
     are independent and the result is bit-identical to the
-    single-device banded page (each row's ``cy`` equals
-    ``page_h - 1 - row`` regardless of the band split; see
-    ``scene/page.py::_direct_page_step``).
+    single-device page (each row's ``cy`` equals ``page_h - 1 - row``
+    regardless of the band split; see ``scene/page.py``).
 
     ``flat_segments``: float32 ``[1, S, 3, 2]`` page-pixel-space
-    segments.  Returns uint8-fill-convertible int32
-    ``[page_h_padded, page_w_padded]`` winding, row-sharded; callers
-    crop to ``page_h`` x ``page_w``."""
+    segments.  Returns int32 ``[page_h_padded, page_w]`` winding,
+    row-sharded; callers crop to ``page_h``."""
     n = mesh.devices.size
-    ph = _round_up_mult(page_h, 128 * n)
-    pw = _round_up_mult(page_w, 128)
-    rows_per = ph // n
+    rows_per = -(-page_h // n)
 
-    if use_pallas:
-        # the production wide-page kernel (deferred carries + dynamic
-        # x-hull tile windows) when the band is wide enough, else v2 —
-        # mirrors scene/page.py's dispatch
-        def local(seg):
-            k = jax.lax.axis_index(ROW_AXIS)
-            my = jnp.full(1, page_h - 1 - k * rows_per, jnp.int32)
-            if pw >= 1024:
-                from fontrx.kernels.winding_page import (
-                    winding_page_batch,
-                )
-
-                return winding_page_batch(
-                    seg, jnp.zeros(1, jnp.int32), my, jnp.float32(1.0),
-                    height=rows_per, width=pw, exact=exact,
-                    interpret=interpret, seg_chunk=32,
-                    tile_w=256 if pw % 256 == 0 else 128,
-                    dynamic_tiles=True,
-                )[0]
-            return winding_pallas_v2_batch(
-                seg, jnp.zeros(1, jnp.int32), my, jnp.float32(1.0),
-                height=rows_per, width=pw, exact=exact,
-                interpret=interpret, group_guard=tuning[0],
-                seg_chunk=tuning[1],
-                tile_w=tuning[2] or (256 if pw % 256 == 0 else 128),
-            )[0]
-    else:
-        def local(seg):
-            k = jax.lax.axis_index(ROW_AXIS)
-            my = jnp.full(1, page_h - 1 - k * rows_per, jnp.int32)
-            return _winding_jnp_batch(
-                seg, jnp.zeros(1, jnp.int32), my, jnp.float32(1.0),
-                height=rows_per, width=pw,
-            )[0]
+    def local(seg):
+        k = jax.lax.axis_index(ROW_AXIS)
+        my = jnp.full(1, page_h - 1, jnp.int32) - k * rows_per
+        return _winding(seg, jnp.zeros(1, jnp.int32), my, 1.0, rows_per,
+                        page_w)[0]
 
     fn = jax.shard_map(
         local,
@@ -469,7 +221,3 @@ def page_rows_sharded(
         check_vma=False,
     )
     return fn(flat_segments)
-
-
-def _round_up_mult(n: int, m: int) -> int:
-    return ((n + m - 1) // m) * m

@@ -24,7 +24,7 @@ degradation, never an error.  CPAL v0 and v1 are parsed (v1's
 palette-type/label arrays are skipped; they only annotate).
 
 Layer rasters ride the existing batched coverage pipeline — layers are
-just more glyph tiles in the same Pallas launch — and compositing is a
+just more glyph tiles in the same batched launch — and compositing is a
 ``lax.scan`` src-over fold on device (``fontrx/cli/main.py`` mode
 ``color``).
 """

@@ -10,7 +10,7 @@ midpoint truncated to integer coordinates exactly like the reference
 (``Glyph.zig:55-57`` notes the rounding; ``geometry.zig:12-17`` is
 ``@divTrunc``), so downstream rasters stay bit-comparable.
 
-Re-design notes (TPU-first): points are NumPy ``int32 [n, 2]`` arrays —
+Re-design notes (array-first): points are NumPy ``int32 [n, 2]`` arrays —
 contours stay in one flat buffer per glyph with offsets, ready for
 zero-copy segment packing (``fontrx.pack``).  The normalization itself
 is vectorized (index arithmetic + cumsum) instead of the reference's

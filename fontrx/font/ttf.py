@@ -1,8 +1,8 @@
 """TrueType wire-format structures and parsers.
 
 Behavioral equivalent of the reference's ``src/font/ttf.zig`` (966 LoC of
-byte-exact ``extern struct`` readers), re-designed for the host side of a
-TPU pipeline: coordinate/flag streams are decoded with NumPy vectorized
+byte-exact ``extern struct`` readers), re-designed for the host side of an
+accelerator pipeline: coordinate/flag streams are decoded with NumPy vectorized
 ops so that packing thousands of glyphs (CJK atlas configs) stays fast.
 
 Covered, matching the reference's support matrix:

@@ -1,20 +1,15 @@
-"""Raster kernels: jnp references + Pallas TPU implementations.
+"""Raster kernels: the row-binned XLA route and its references.
 
-- ``grid``          — raster-grid geometry shared by every backend (the
+- ``grid``          — raster-grid geometry shared by every route (the
   exact pixel->em-space mapping of ``src/tools/render_glyph.zig:13-27``).
 - ``oracle``        — NumPy float winding oracle, operation-for-operation
   with ``src/tools/render_glyph.zig:35-73`` (the bit-exactness anchor).
-- ``winding_jnp``      — vectorized ``jax.numpy`` winding fill (XLA
-  reference and CPU fallback).
-- ``winding_pallas``   — first-generation Pallas kernel (reference/tests).
-- ``winding_pallas_v2``— the production kernel: row-strip carry sweep,
-  hull culling, streamed segment axis, exact mode.
+- ``winding``          — row-binned winding fill on the XLA route (GPU
+  and CPU) and its host binning.
 - ``exactmath``        — correctly-rounded f32 div/sqrt emulation.
-- ``coverage`` / ``coverage_pallas`` — k x k supersampled coverage (the
-  MSAA analog of ``src/VulkanContext.zig:303-371``); multipass and
-  fused single-launch variants.
-- ``sdf`` / ``sdf_pallas`` — signed-distance output (dense jnp and
-  banded Pallas).
+- ``coverage``         — k x k supersampled coverage (the MSAA analog of
+  ``src/VulkanContext.zig:303-371``).
+- ``sdf``              — signed-distance output.
 - ``loopblinn``        — triangulation-equivalent fill: point-in-triangle
   + implicit-quadratic test (math of ``src/shaders/shader.slang:32-51``).
 - ``oracle_exact``     — tie-free exact-integer winding (symbolic

@@ -2,9 +2,8 @@
 
 The reference's MSAA is a Vulkan multisample color target resolved by
 averaging (``src/VulkanContext.zig:303-371``, resolve mode ``average``
-``:243-247``).  The TPU-native equivalent is in-register supersampling:
-winding is evaluated at a k x k sub-pixel sample lattice and coverage is
-the fraction of covered samples.
+``:243-247``).  Here winding is evaluated at a k x k sub-pixel sample
+lattice and coverage is the fraction of covered samples.
 
 Sample positions: a centered uniform lattice,
 ``offset_i = (i + 0.5)/k - 0.5`` for ``i in 0..k-1`` (pixel units)
@@ -12,9 +11,9 @@ around the reference sample point — the regular-grid analog of the
 GPU's standard sample patterns.  At ``k=1`` the single offset is 0.0,
 which reproduces the 1x oracle raster bit-for-bit.
 
-Implementation: ``lax.map`` over the k^2 offsets re-invoking the batched
-winding kernel (Pallas on TPU), then a mean.  One jit, one compile; the
-winding kernel itself stays the single tuned code path.
+The engine's ``RasterEngine.coverage_batch`` runs the k^2 passes on its
+winding route over one binning; :func:`coverage_batch` here is the
+traceable plain-XLA form (sharded atlases, tests).
 """
 
 from __future__ import annotations
@@ -25,8 +24,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from fontrx.kernels.winding_jnp import winding_batch as _winding_jnp
-from fontrx.kernels.winding_pallas import winding_pallas_batch as _winding_pallas
+from fontrx.kernels.winding import winding_batch as _winding_batch
 
 
 def sample_offsets(k: int) -> np.ndarray:
@@ -36,21 +34,9 @@ def sample_offsets(k: int) -> np.ndarray:
     return np.stack([ox.ravel(), oy.ravel()], axis=1)
 
 
-@functools.partial(
-    jax.jit, static_argnames=("height", "width", "samples", "use_pallas", "interpret")
-)
-def coverage_batch(
-    segments,
-    min_x,
-    max_y,
-    scale,
-    *,
-    height,
-    width,
-    samples: int = 4,
-    use_pallas: bool = False,
-    interpret: bool = False,
-):
+@functools.partial(jax.jit, static_argnames=("height", "width", "samples"))
+def coverage_batch(segments, min_x, max_y, scale, *, height, width,
+                   samples: int = 4):
     """Batched k x k supersampled coverage.
 
     ``samples`` is k (so 4 => 16 subsamples, the "4x MSAA" analog of
@@ -60,158 +46,16 @@ def coverage_batch(
     offs = jnp.asarray(sample_offsets(samples))
 
     def one(off):
-        if use_pallas:
-            w = _winding_pallas(
-                segments, min_x, max_y, scale,
-                height=height, width=width,
-                interpret=interpret, sample_offset=(off[0], off[1]),
-            )
-        else:
-            w = _winding_jnp(
-                segments, min_x, max_y, scale,
-                height=height, width=width, sample_offset=(off[0], off[1]),
-            )
-        return (w != 0).astype(jnp.float32)
-
-    cov = jax.lax.map(one, offs)  # [k*k, B, H, W]
-    return cov.mean(axis=0)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("height", "width", "samples", "exact", "guard", "interpret"),
-)
-def coverage_batch_v2(
-    segments,
-    min_x,
-    max_y,
-    scale,
-    *,
-    height,
-    width,
-    samples: int = 2,
-    exact: bool = True,
-    guard: bool = False,
-    interpret: bool = False,
-):
-    """k x k supersampled coverage as k^2 sub-pixel-offset passes of the
-    tuned v2 carry-sweep winding kernel (the page path's MSAA strategy,
-    ``scene/page.py``, applied at tile scale).
-
-    The v2 kernel takes its sample offset as a *traced* SMEM input, so
-    ``lax.map`` over the offset lattice compiles the kernel once.  Same
-    conventions as :func:`coverage_batch`; ``height``/``width`` must be
-    multiples of 128 (v2 strips).  Bit-identical to the jnp/v1 multipass
-    and to the fused kernel: each sample's winding is the same float
-    program, and the mean of k^2 {0,1} values is exact in f32.
-    """
-    from fontrx.kernels.winding_pallas_v2 import winding_pallas_v2_batch
-
-    offs = jnp.asarray(sample_offsets(samples))
-
-    def one(off):
-        w = winding_pallas_v2_batch(
-            segments, min_x, max_y, scale,
-            height=height, width=width,
-            interpret=interpret, sample_offset=(off[0], off[1]),
-            exact=exact, guard=guard,
+        w = _winding_batch(
+            segments, min_x, max_y, scale, height=height, width=width,
+            sample_offset=off,
         )
         return (w != 0).astype(jnp.float32)
 
     cov = jax.lax.map(one, offs)  # [k*k, B, H, W]
-    return cov.mean(axis=0)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("height", "width", "samples", "exact", "interpret"),
-)
-def coverage_batch_dense(
-    segments,
-    min_x,
-    max_y,
-    scale,
-    *,
-    height,
-    width,
-    samples: int = 2,
-    exact: bool = True,
-    interpret: bool = False,
-):
-    """k x k supersampled coverage as k^2 sub-pixel-offset passes of
-    the round-3 column-major dense kernel — the small-tile (<= 128 px)
-    twin of :func:`coverage_batch_v2`.  Bit-identical to the other
-    strategies: each offset's fill is the dense kernel's (itself
-    bit-identical to v2), and the mean of k^2 {0,1} values is exact in
-    f32.  ``height``/``width`` <= 128."""
-    from fontrx.kernels.winding_dense import (
-        dense_tuning,
-        winding_dense_batch,
-    )
-
-    offs = jnp.asarray(sample_offsets(samples))
-    lane_pack, seg_chunk = dense_tuning(height)
-
-    def one(off):
-        w = winding_dense_batch(
-            segments, min_x, max_y, scale,
-            height=height, width=width,
-            interpret=interpret, sample_offset=(off[0], off[1]),
-            exact=exact, seg_chunk=seg_chunk, lane_pack=lane_pack,
-        )
-        return (w != 0).astype(jnp.float32)
-
-    cov = jax.lax.map(one, offs)  # [k*k, B, 128, W]
     return cov.mean(axis=0)
 
 
 def coverage_to_gray(coverage) -> jnp.ndarray:
     """Antialiased 8-bit alpha from coverage."""
     return jnp.clip(jnp.round(coverage * 255.0), 0, 255).astype(jnp.uint8)
-
-
-def lcd_coverage_batch(
-    segments,
-    min_x,
-    max_y,
-    scale,
-    *,
-    height,
-    width,
-    samples: int = 2,
-    exact: bool = True,
-    use_pallas: bool = True,
-    interpret: bool = False,
-):
-    """LCD subpixel coverage: float32 ``[B, H, W, 3]`` — per RGB
-    channel, the k x k coverage lattice shifted to that channel's
-    horizontal subpixel center (R -1/3 px, G 0, B +1/3 px), the classic
-    3x1 striped-panel filter.  A capability extension (the reference
-    has no subpixel rendering); pairs with ``coverage_to_gray`` per
-    channel for an sRGB-naive LCD raster."""
-    from fontrx.kernels.winding_jnp import winding_batch as _jnp_batch
-    from fontrx.kernels.winding_pallas_v2 import winding_pallas_v2_batch
-
-    lattice = sample_offsets(samples)
-    chans = []
-    for cx in (-1.0 / 3.0, 0.0, 1.0 / 3.0):
-        offs = jnp.asarray(lattice + np.array([cx, 0.0], np.float32))
-
-        def one(off):
-            if use_pallas:
-                w = winding_pallas_v2_batch(
-                    segments, min_x, max_y, scale,
-                    height=height, width=width,
-                    interpret=interpret,
-                    sample_offset=(off[0], off[1]), exact=exact,
-                )
-            else:
-                w = _jnp_batch(
-                    segments, min_x, max_y, scale,
-                    height=height, width=width,
-                    sample_offset=(off[0], off[1]),
-                )
-            return (w != 0).astype(jnp.float32)
-
-        chans.append(jax.lax.map(one, offs).mean(axis=0))
-    return jnp.stack(chans, axis=-1)

@@ -1,12 +1,12 @@
-"""Correctly-rounded f32 division and sqrt on hardware without them.
+"""Correctly-rounded f32 division and sqrt where XLA's are not.
 
-TPU VPU division and sqrt are faithfully rounded (~1 ulp) but not
-IEEE-correct (measured: ~40% of random values differ from the correctly
-rounded result by 1 ulp).  The winding kernels' tie decisions — a root
-landing exactly on ``t = 0``/``t = 1`` or a crossing exactly on a pixel
-column, which real fonts hit constantly because glyph coordinates are
-integers aligned to the pixel grid — flip on that last ulp, breaking
-bit-parity with the (IEEE-correct) CPU oracle.
+XLA's f32 division and sqrt on the GPU are approximate: on an H100,
+~30% of random quotients and ~17% of square roots differ from the
+correctly rounded result (``PERF.md``).  The winding routes' tie
+decisions — a root landing exactly on ``t = 0``/``t = 1`` or a crossing
+exactly on a pixel column, which real fonts hit constantly because
+glyph coordinates are integers aligned to the pixel grid — flip on that
+last ulp, breaking bit-parity with the (IEEE-correct) CPU oracle.
 
 These helpers recover correct rounding with classic extended-precision
 tricks that need neither FMA nor float64:
@@ -24,31 +24,20 @@ tricks that need neither FMA nor float64:
   ``r / (2 s)``; f32 square roots are never exactly halfway, with the
   same exclusion-zone argument.
 
-Cost: ~30 VPU ops per call instead of 1 — used only in the winding
-kernels' per-row phase (O(rows x segments), not O(pixels)), so the
-whole-kernel overhead is small.  Verified against NumPy IEEE results
-exhaustively on random/adversarial values (tests + on-TPU probe).
-
-An alternative *reciprocal* scheme (``div_cr_recip``/``sqrt_cr_recip``
-below) replaces the correction divides with multiplies by a hoisted
-``1/b`` — 1 hardware divide per call instead of 3.  It is equally
-correct (op-level exhaustive 0-mismatch on TPU,
-tools/tpu_probes/tpu_exactmath_v2.py) but measured *slower* inside the
-real kernels (same-process interleaved A/B,
-tools/tpu_probes/tpu_exactmath_ab.py: headline v2 0.333 -> 0.72 ms,
-dense CJK 5.26 -> 5.53 ms; docs/RESULTS.md "Exact-math variants") —
-Mosaic/VPU divide throughput is not the bottleneck the op count
-suggests, and the extra splits/selects in the reciprocal residuals
-cost more than the divides they save.  Kept for A/B re-validation if a
-future toolchain shifts the balance; NOT wired into any kernel.
+The Veltkamp split relies on the products not being fused into FMAs;
+XLA on the GPU does not contract them.  Cost: ~30 ops per call instead
+of 1 — used only in the winding routes' per-row phase (O(rows x
+segments), not O(pixels)) and the colour path.  Verified against NumPy
+IEEE results on random/adversarial values (tests, and on the GPU by
+``chip_smoke.py``'s route-vs-oracle checks).
 """
 
 from __future__ import annotations
 
 import jax.numpy as jnp
 
-# 2**12 + 1 (Veltkamp constant for f32); a Python literal so Pallas
-# kernels don't capture a traced constant
+# 2**12 + 1 (Veltkamp constant for f32); a Python literal so kernels
+# don't capture a traced constant
 _SPLIT = 4097.0
 
 
@@ -95,58 +84,4 @@ def sqrt_cr(d):
     s0s = jnp.where(fin, s0, jnp.float32(1.0))  # guard 0/inf/nan lanes
     s1 = s0s + _residual_div(d, s0s, s0s) / (2.0 * s0s)
     s2 = s1 + _residual_div(d, s1, s1) / (2.0 * s1)
-    return jnp.where(fin, s2, s0)
-
-
-# --- reciprocal scheme: correct but measured slower in-kernel --------
-# (see module docstring; retained for A/B re-validation only)
-
-
-def div_cr_recip(a, b):
-    """Correctly rounded a / b via a hoisted reciprocal (1 hardware
-    divide).  Contract: finite a, *normal* b — a subnormal divisor
-    overflows ``recip`` and falls back to the seed instead of the
-    hardware quotient.  Kernel divisors are integer-valued font units,
-    pixel scales, or their sums — never subnormal — but the production
-    ``div_cr`` has no such carve-out, which is one more reason it
-    ships."""
-    a = jnp.asarray(a, jnp.float32)
-    b = jnp.asarray(b, jnp.float32)
-    recip = 1.0 / b                       # the only hardware divide
-    bh, bl = _split(b)
-
-    def resid(q):
-        # exact residual a - q*b (Veltkamp product + Sterbenz-exact
-        # leading subtraction; b's split is hoisted)
-        p = q * b
-        qh, ql = _split(q)
-        e = ((qh * bh - p) + qh * bl + ql * bh) + ql * bl
-        return (a - p) - e
-
-    q0 = a * recip
-    q1 = q0 + resid(q0) * recip
-    q2 = q1 + resid(q1) * recip
-    # non-finite seed (b zero/inf/subnormal, a inf/nan) -> keep seed,
-    # whose sign semantics match the hardware quotient for zero b
-    return jnp.where(jnp.isfinite(q0), q2, q0)
-
-
-def _residual_sq(d, s):
-    """Exact residual d - s*s (squared two_prod: one split)."""
-    p = s * s
-    sh, sl = _split(s)
-    e = ((sh * sh - p) + 2.0 * (sh * sl)) + sl * sl
-    return (d - p) - e
-
-
-def sqrt_cr_recip(d):
-    """Correctly rounded sqrt(d) via a hoisted 1/(2 s0) (1 sqrt + 1
-    divide).  See ``div_cr_recip`` for why this doesn't ship."""
-    d = jnp.asarray(d, jnp.float32)
-    s0 = jnp.sqrt(d)
-    fin = jnp.isfinite(s0) & (s0 > 0)
-    s0s = jnp.where(fin, s0, jnp.float32(1.0))  # guard 0/inf/nan lanes
-    rs = 1.0 / (s0s + s0s)                # the only hardware divide
-    s1 = s0s + _residual_sq(d, s0s) * rs
-    s2 = s1 + _residual_sq(d, s1) * rs
     return jnp.where(fin, s2, s0)

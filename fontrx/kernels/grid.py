@@ -10,7 +10,7 @@ CPU rasterizer (``src/tools/render_glyph.zig:11-27``):
   ``((min_x + x) / scale, (max_y - y) / scale)`` — y runs top-down.
 
 All arithmetic is float32 in the same operation order as the reference
-so that every backend (NumPy oracle, jnp, Pallas) lands on bit-identical
+so that every route (NumPy oracle, XLA on CPU and GPU) lands on bit-identical
 sample coordinates.
 """
 

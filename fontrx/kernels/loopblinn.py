@@ -1,7 +1,7 @@
 """Triangulation-equivalent fill: rasterize classified triangles with
 the implicit-quadratic sign test (BASELINE config 3).
 
-The TPU re-expression of the reference's three graphics pipelines
+The JAX re-expression of the reference's three graphics pipelines
 (``src/Appli.zig:145-217``) and fragment kernels
 (``src/shaders/shader.slang:32-51``): per pixel, a triangle covers it
 when the pixel is inside the triangle AND the class test passes on the
@@ -123,33 +123,20 @@ def loopblinn_batch(
     return jax.vmap(one)(tris, classes, min_x, max_y)
 
 
-def loopblinn_fill(tri_glyph, grid, backend: str | None = None) -> np.ndarray:
-    """Single-glyph convenience: uint8 ``[H, W]`` 0/255 fill.  On the
-    pallas backend the bbox-cull kernel runs on tile-padded dims
-    (cropped back); elsewhere the jnp kernel rasters the exact grid.
-    ``backend`` defaults to pallas-on-TPU (pass the engine's resolved
-    backend to honor a --backend override)."""
-    import jax
-
+def loopblinn_fill(tri_glyph, grid) -> np.ndarray:
+    """Single-glyph convenience: uint8 ``[H, W]`` 0/255 fill over the
+    exact grid."""
     tris = _pack_triangle_arrays(tri_glyph)
     classes = tri_glyph.classes
     padded, cls = pad_triangles(tris, classes, max(len(tris), 1))
-    args = (
+    out = loopblinn_batch(
         jnp.asarray(padded)[None],
         jnp.asarray(cls)[None],
         jnp.array([grid.min_x], jnp.int32),
         jnp.array([grid.max_y], jnp.int32),
         jnp.float32(grid.scale),
+        height=grid.height, width=grid.width,
     )
-    if backend is None:
-        backend = "pallas" if jax.default_backend() == "tpu" else "jnp"
-    if backend == "pallas":
-        ph = ((grid.height + LB_TILE_H - 1) // LB_TILE_H) * LB_TILE_H
-        pw = ((grid.width + LB_TILE_W - 1) // LB_TILE_W) * LB_TILE_W
-        out = loopblinn_pallas_batch(*args, height=ph, width=pw)
-        out = out[:, : grid.height, : grid.width]
-    else:
-        out = loopblinn_batch(*args, height=grid.height, width=grid.width)
     return np.where(np.asarray(out[0]), 255, 0).astype(np.uint8)
 
 
@@ -189,185 +176,3 @@ def debug_render(tri_glyph, grid) -> np.ndarray:
         alpha = np.where(inside, np.where(kept, 0.5, 0.2), 0.0)[..., None]
         img = img * (1 - alpha) + np.array(colors[int(c)]) * alpha
     return np.clip(img * 255, 0, 255).astype(np.uint8)
-
-
-# ---------------------------------------------------------------------------
-# Pallas TPU version: chunk-bbox culling over (8, 128) pixel tiles.
-# The jnp kernel above evaluates every triangle against every pixel
-# (O(M*H*W)); ear-clipped triangles are local, so most (triangle-chunk,
-# tile) pairs never interact — the same structure as the SDF kernel's
-# hull cull (sdf_pallas.py).
-
-LB_TILE_H = 8
-LB_TILE_W = 128
-LB_CHUNK = 8
-
-
-def _soa_triangles(tris, classes, chunk=LB_CHUNK):
-    """[B, M, 3, 4] + [B, M] -> float32 [B, M16, 16] SoA:
-    lanes 0-11 = (x y u v) x 3 corners, lane 12 = class."""
-    import jax.numpy as jnp
-
-    b, m = tris.shape[0], tris.shape[1]
-    m16 = ((m + chunk - 1) // chunk) * chunk
-    soa = jnp.zeros((b, m16, 16), jnp.float32)
-    soa = soa.at[:, :m, :12].set(tris.reshape(b, m, 12))
-    soa = soa.at[:, :, 12].set(3.0)  # padding class (never draws)
-    soa = soa.at[:, :m, 12].set(classes.astype(jnp.float32))
-    return soa
-
-
-def _make_lb_kernel(tile_h=LB_TILE_H, chunk=LB_CHUNK):
-    """``tile_h``/``chunk`` partition work only — the per-(triangle,
-    pixel) float program is identical for any setting, so coverage is
-    exactly the same (class-3 padding rows never pass ``keep``)."""
-    from jax.experimental import pallas as pl
-
-    def kernel(min_x_ref, max_y_ref, scale_ref, off_ref, tri_ref, out_ref):
-        b = pl.program_id(0)
-        i = pl.program_id(1)
-        j = pl.program_id(2)
-        mx = min_x_ref[0, b]
-        my = max_y_ref[0, b]
-        scale = scale_ref[0, 0]
-        ox = off_ref[0, 0]
-        oy = off_ref[0, 1]
-
-        m16 = tri_ref.shape[1]
-        n_chunks = m16 // chunk
-
-        row = jax.lax.broadcasted_iota(jnp.int32, (1, tile_h, LB_TILE_W), 1)
-        col = jax.lax.broadcasted_iota(jnp.int32, (1, tile_h, LB_TILE_W), 2)
-        px = ((mx + j * LB_TILE_W + col).astype(jnp.float32) + ox) / scale
-        py = ((my - (i * tile_h + row)).astype(jnp.float32) + oy) / scale
-        tx0 = px[0, 0, 0]
-        tx1 = tx0 + jnp.float32(LB_TILE_W) / scale
-        ty1 = py[0, 0, 0]
-        ty0 = ty1 - jnp.float32(tile_h) / scale
-
-        out_ref[0] = jnp.zeros((tile_h, LB_TILE_W), jnp.int32)
-
-        def chunk_body(c, _):
-            tc = tri_ref[0, pl.ds(c * chunk, chunk), :]  # (C, 16)
-
-            def lane(k):
-                return tc[:, k : k + 1].reshape(chunk, 1, 1)
-
-            ax, ay = lane(0), lane(1)
-            bx, by = lane(4), lane(5)
-            cx, cy = lane(8), lane(9)
-            cls = lane(12)
-
-            hx0 = jnp.min(jnp.minimum(jnp.minimum(ax, bx), cx))
-            hx1 = jnp.max(jnp.maximum(jnp.maximum(ax, bx), cx))
-            hy0 = jnp.min(jnp.minimum(jnp.minimum(ay, by), cy))
-            hy1 = jnp.max(jnp.maximum(jnp.maximum(ay, by), cy))
-            live = jnp.any(cls != 3.0)
-            overlap = (
-                (hx1 >= tx0) & (hx0 <= tx1) & (hy1 >= ty0) & (hy0 <= ty1)
-            )
-
-            @pl.when(live & overlap)
-            def _():
-                e0 = (bx - ax) * (py - ay) - (by - ay) * (px - ax)
-                e1 = (cx - bx) * (py - by) - (cy - by) * (px - bx)
-                e2 = (ax - cx) * (py - cy) - (ay - cy) * (px - cx)
-                area = (bx - ax) * (cy - ay) - (by - ay) * (cx - ax)
-                sgn = jnp.sign(area)
-                inside = (
-                    (e0 * sgn >= 0) & (e1 * sgn >= 0) & (e2 * sgn >= 0)
-                    & (area != 0)
-                )
-                inv = jnp.where(
-                    area != 0, 1.0 / jnp.where(area == 0, 1.0, area), 0.0
-                )
-                la = e1 * inv
-                lb = e2 * inv
-                lc = 1.0 - la - lb
-                u = la * lane(2) + lb * lane(6) + lc * lane(10)
-                v = la * lane(3) + lb * lane(7) + lc * lane(11)
-                f = (1 + u - v) * (1 + u - v)
-                # boolean select via logic ops — Mosaic cannot truncate
-                # i8 selects to i1 (same workaround as the winding
-                # kernel, winding_pallas_v2.py)
-                keep = (
-                    ((cls == 0.0) & (f >= 4 * u))
-                    | ((cls == 1.0) & (f <= 4 * u))
-                    | (cls == 2.0)
-                )
-                hit = jnp.max(
-                    jnp.where(inside & keep, 1, 0), axis=0
-                )  # (TH, TW)
-                out_ref[0] = jnp.maximum(out_ref[0], hit)
-
-            return 0
-
-        jax.lax.fori_loop(0, n_chunks, chunk_body, 0)
-
-    return kernel
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("height", "width", "interpret", "tile_h", "chunk"),
-)
-def loopblinn_pallas_batch(
-    tris, classes, min_x, max_y, scale, *, height, width,
-    interpret=False, sample_offset=(0.0, 0.0), tile_h=None,
-    chunk=32,
-):
-    """Pallas triangle-mesh fill — same contract as
-    :func:`loopblinn_batch` (-> bool ``[B, H, W]``), with per-(chunk,
-    tile) bbox culling.  Same float program per (triangle, pixel), so
-    coverage matches the jnp kernel exactly.
-
-    ``tile_h``/``chunk`` only partition the work (coverage-identical
-    for every setting).  The kernel is BRANCH-bound, not compute-bound
-    — the round-3-close sweep (tools/tpu_probes/tpu_lb_knobs.py)
-    measured the original 8x8 partition at 9.23 ms for the 94-glyph
-    ASCII atlas @128px vs **1.40 ms at tile_h=128, chunk=32** (6.6x):
-    1504 grid steps x n_chunks tiny pl.when bodies dominated.
-    Defaults: chunk 32, tile_h = the largest divisor of ``height`` in
-    {128, 64, 32, 16, 8} (tile_h x chunk capped to dodge the ~16 MB
-    scoped-VMEM limit: 64x64 OOMs, 128x32 fits)."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    if tile_h is None:
-        tile_h = next(
-            (t for t in (128, 64, 32, 16, 8) if height % t == 0
-             and t * chunk <= 4096),
-            LB_TILE_H,
-        )
-    b = tris.shape[0]
-    assert height % tile_h == 0 and width % LB_TILE_W == 0
-    soa = _soa_triangles(jnp.asarray(tris, jnp.float32),
-                         jnp.asarray(classes), chunk=chunk)
-    m16 = soa.shape[1]
-    min_x = jnp.asarray(min_x, jnp.int32).reshape(1, b)
-    max_y = jnp.asarray(max_y, jnp.int32).reshape(1, b)
-    scale_arr = jnp.full((1, 1), scale, jnp.float32)
-    off_arr = jnp.asarray(sample_offset, jnp.float32).reshape(1, 2)
-
-    grid = (b, height // tile_h, width // LB_TILE_W)
-    out = pl.pallas_call(
-        _make_lb_kernel(tile_h=tile_h, chunk=chunk),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(
-                (1, m16, 16), lambda b_, i, j: (b_, 0, 0),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-        out_specs=pl.BlockSpec(
-            (1, tile_h, LB_TILE_W), lambda b_, i, j: (b_, i, j),
-            memory_space=pltpu.VMEM,
-        ),
-        out_shape=jax.ShapeDtypeStruct((b, height, width), jnp.int32),
-        interpret=interpret,
-    )(min_x, max_y, scale_arr, off_arr, soa)
-    return out != 0

@@ -8,7 +8,14 @@ float32 with identical comparison conventions:
   ``delta = cy*a + p1y^2 - p0y*p2y`` (``render_glyph.zig:58``),
 - parameter interval is half-open ``t in [0, 1)``,
 - crossings strictly left of the sample (``xx < cx``) are excluded,
-- winding decrements when the curve ascends (``dy > 0``).
+- winding decrements when the curve ascends (``dy > 0``),
+- a crossing counts only on rows inside the segment's control hull
+  (``min(p0y, p1y, p2y) <= cy <= max(...)``).  The exact curve never
+  leaves its hull; the test drops the roots that f32 cancellation
+  invents for near-flat quadratics (``a`` ~ 1e-5 after a page
+  transform rounds a straight segment's control points), which would
+  otherwise streak whole rows far from any glyph — and it makes every
+  hull cull of the raster routes exact.
 
 Vectorized over (pixels x segments) — per-element float semantics are
 unchanged by vectorization, so results are bit-identical to a scalar
@@ -93,9 +100,11 @@ def winding_at(segments: np.ndarray, cx, cy, contract: bool = True) -> np.ndarra
     with np.errstate(divide="ignore", invalid="ignore"):
         # --- degenerate (linear in y) branch (``render_glyph.zig:49-57``)
         lin = a == 0
+        in_hull = ((cy >= np.minimum(np.minimum(p0y, p1y), p2y))
+                   & (cy <= np.maximum(np.maximum(p0y, p1y), p2y)))
         nonflat = lin & (p2y != p0y)
         t = (cy - p0y) / (p2y - p0y)
-        valid = nonflat & (t >= 0) & (t < 1)
+        valid = nonflat & in_hull & (t >= 0) & (t < 1)
         xx = _poly_xx(ax, bx, p0x, t, contract)
         valid &= ~(xx < cx)
         sign = np.where(p0y < p2y, -1, 1).astype(np.int32)
@@ -104,7 +113,7 @@ def winding_at(segments: np.ndarray, cx, cy, contract: bool = True) -> np.ndarra
         # --- quadratic branch (``render_glyph.zig:58-69``)
         quad = ~lin
         delta = cy * a + p1y * p1y - p0y * p2y
-        has_roots = quad & (delta >= 0)
+        has_roots = quad & in_hull & (delta >= 0)
         sq = np.sqrt(np.where(delta >= 0, delta, f32(0)))
         for sgn in (f32(1), f32(-1)):
             troot = ((p0y - p1y) + sgn * sq) / a

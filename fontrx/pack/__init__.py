@@ -1,6 +1,6 @@
 """Glyph outlines -> padded, fixed-shape segment tensors.
 
-The TPU analog of the reference's per-glyph GPU vertex/index buffers
+The analog of the reference's per-glyph GPU vertex/index buffers
 (``src/Appli.zig:219-302``): instead of triangle meshes, glyphs become
 ``(S_max, 3, 2)`` float32 quadratic-segment arrays whose zero padding is
 *inert* under the winding math (a degenerate all-zero segment has

@@ -2,36 +2,24 @@
 
 SURVEY §5.2: the reference's GPU-correctness harness is Vulkan
 validation layers + debug messenger (``src/VulkanContext.zig:506-562``);
-the TPU-native equivalents collected here:
+the equivalents collected here:
 
-- ``validation_mode()``      — run every Pallas kernel interpreted (the
-  "validation layer" analog; catches OOB refs and shape bugs eagerly).
 - ``checked(fn)``            — wrap a jitted function with
   ``jax.experimental.checkify`` NaN/div/OOB checks.
 - ``assert_finite(x, name)`` — host-side guard for raster outputs.
 - golden-image diffing       — the determinism-based race detector
-  (``diff_report``): TPU kernels are deterministic, so any two runs of
-  the same program must match bit-for-bit.
+  (``diff_report``): the raster routes are deterministic (integer
+  winding sums commute), so any two runs of the same program must
+  match bit-for-bit.
 """
 
 from __future__ import annotations
-
-import contextlib
 
 import numpy as np
 
 from fontrx.utils.log import get_logger
 
 log = get_logger("Debug")
-
-
-@contextlib.contextmanager
-def validation_mode():
-    """Force all Pallas kernels into interpreter mode within the scope."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    with pltpu.force_tpu_interpret_mode():
-        yield
 
 
 def checked(fn):

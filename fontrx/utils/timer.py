@@ -5,7 +5,7 @@ timer (``src/helpers.zig:284-299``), whose call sites were committed but
 commented out; here enablement is a constructor flag / env var instead
 (SURVEY §5.1).  Also provides ``trace`` — a context manager that both
 phase-times and emits a ``jax.profiler`` TraceAnnotation so phases show
-up in TPU profiles.
+up in device profiles.
 """
 
 from __future__ import annotations

@@ -12,10 +12,10 @@ class TestArtifactCache:
 
         cache = ArtifactCache(str(tmp_path))
         s1, l1 = cached_atlas(dejavu, "ABC", 48, 64,
-                              RasterEngine(backend="jnp"), cache)
+                              RasterEngine(), cache)
         assert cache.stats()["entries"] == 1
         s2, l2 = cached_atlas(dejavu, "ABC", 48, 64,
-                              RasterEngine(backend="jnp"), cache)
+                              RasterEngine(), cache)
         np.testing.assert_array_equal(s1, s2)
         assert (l1.cols, l1.rows) == (l2.cols, l2.rows)
 
@@ -104,13 +104,12 @@ class TestDebugHelpers:
         with pytest.raises(Exception):
             fn(jnp.array([-1.0]))  # nan -> checkify error
 
-    def test_validation_mode_runs_kernel(self, dejavu):
-        import jax.numpy as jnp
-
+    def test_engine_padded_grid_matches_oracle(self, dejavu):
+        """A grid padded past the glyph box (extra rows and columns
+        that sample empty space) rasters oracle-exact."""
+        from fontrx.engine.raster import RasterEngine
         from fontrx.kernels.grid import RasterGrid
-        from fontrx.kernels.winding_pallas import winding_pallas_batch
         from fontrx.pack.segments import glyph_segments
-        from fontrx.utils.debug import validation_mode
         from fontrx.kernels import oracle
 
         g, _ = dejavu.get_glyph("T")
@@ -118,16 +117,9 @@ class TestDebugHelpers:
         grid = RasterGrid.for_glyph_box(
             (g.box.x_min, g.box.y_min, g.box.x_max, g.box.y_max), 32, 2048
         ).padded(8, 128)
-        with validation_mode():
-            out = winding_pallas_batch(
-                jnp.asarray(seg)[None],
-                jnp.array([grid.min_x], jnp.int32),
-                jnp.array([grid.max_y], jnp.int32),
-                jnp.float32(grid.scale),
-                height=grid.height, width=grid.width,
-            )
+        out = RasterEngine().winding_glyph(seg, grid)
         np.testing.assert_array_equal(
-            np.asarray(out[0]), oracle.winding_map(seg, grid)
+            np.asarray(out), oracle.winding_map(seg, grid)
         )
 
 
@@ -193,7 +185,7 @@ class TestBucketedPacking:
 
         chars = "I@%&WMm gQ"
         glyphs = [dejavu.get_glyph(c)[0] for c in chars]
-        eng = RasterEngine(backend="jnp")
+        eng = RasterEngine()
         whole, _ = eng.winding_packed(pack_glyphs(glyphs), 64, 2048, 64)
         split = pack_glyphs_split(glyphs, capacity=16)
         assert len(split) > len(glyphs)  # actually split something
@@ -217,7 +209,7 @@ class TestBucketedPacking:
 
         chars = "Io@"
         glyphs = [dejavu.get_glyph(c)[0] for c in chars]
-        eng = RasterEngine(backend="jnp")
+        eng = RasterEngine()
         flat = pack_glyphs(glyphs)
         w_flat, grids = eng.winding_packed(flat, 64, 2048, 64)
         w_flat = np.asarray(w_flat)
@@ -235,7 +227,7 @@ class TestPipelinedFrames:
         from fontrx.scene.interactive import InteractiveSession
 
         sess = InteractiveSession(
-            dejavu, "pq", 256, 128, RasterEngine(backend="jnp"),
+            dejavu, "pq", 256, 128, RasterEngine(),
             mode="direct", pipeline=True,
         )
         f0 = sess.frame()          # returns frame 0 (nothing in flight)
@@ -308,7 +300,7 @@ class TestWebSocketViewer:
         from fontrx.scene.interactive import InteractiveSession
 
         sess = InteractiveSession(
-            dejavu, "Hi", 128, 96, RasterEngine(backend="jnp")
+            dejavu, "Hi", 128, 96, RasterEngine()
         )
         httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(sess))
         httpd.daemon_threads = True
@@ -377,7 +369,7 @@ class TestLiveViewer:
         from fontrx.scene.interactive import InteractiveSession
 
         sess = InteractiveSession(
-            dejavu, "Hi", 128, 96, RasterEngine(backend="jnp")
+            dejavu, "Hi", 128, 96, RasterEngine()
         )
         httpd = HTTPServer(("127.0.0.1", 0), make_handler(sess))
         port = httpd.server_port
@@ -432,8 +424,7 @@ class TestYSortPacking:
         assert (np.diff(ymid) >= 0).all()
 
     def test_ysort_bitexact(self, dejavu):
-        """Sorted vs contour-order segment arrays raster identically
-        (both jnp and Pallas-interpret backends)."""
+        """Sorted vs contour-order segment arrays raster identically."""
         import jax.numpy as jnp
 
         from fontrx.engine.raster import RasterEngine
@@ -449,7 +440,7 @@ class TestYSortPacking:
             grid = RasterGrid.for_glyph_box(
                 packed.box, 64, dejavu.info.units_per_em
             )
-            eng = RasterEngine(backend="jnp")
+            eng = RasterEngine()
             a = eng.winding_glyph(packed.segments, grid)
             b = eng.winding_glyph(plain, grid)
             np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
@@ -477,7 +468,7 @@ class TestHybridPacking:
         # mix: mostly small glyphs + '@' (and 'B') to force multi-row
         chars = list("Hello@Big, Wrld!#&")
         glyphs = [dejavu.get_glyph(c)[0] for c in chars]
-        eng = RasterEngine(backend="jnp")
+        eng = RasterEngine()
         hb = pack_glyphs_hybrid(glyphs, capacity=16)
         assert any(r > 1 for r, _ in hb.groups)  # the point of the test
         out, grids = eng.winding_hybrid(hb, 48, dejavu.info.units_per_em, 48)
@@ -530,7 +521,7 @@ class TestViewerAxisUI:
         from fontrx.scene.interactive import InteractiveSession
 
         sess = InteractiveSession(
-            self._vf(), "AB", 128, 96, RasterEngine(backend="jnp"))
+            self._vf(), "AB", 128, 96, RasterEngine())
         (ax,) = sess.axes_info()
         assert ax["tag"] == "wght" and ax["value"] == ax["default"]
         sess.set_axis("wght", 700.0)
@@ -544,7 +535,7 @@ class TestViewerAxisUI:
         from fontrx.scene.interactive import InteractiveSession
 
         sess = InteractiveSession(
-            dejavu, "A", 128, 96, RasterEngine(backend="jnp"))
+            dejavu, "A", 128, 96, RasterEngine())
         assert sess.axes_info() == []
         sess.set_axis("wght", 700)  # no-op, no crash
 
@@ -553,7 +544,7 @@ class TestViewerAxisUI:
         from fontrx.scene.interactive import InteractiveSession
 
         sess = InteractiveSession(
-            dejavu, "A", 128, 96, RasterEngine(backend="jnp"))
+            dejavu, "A", 128, 96, RasterEngine())
         assert sess.mode == "direct"
         sess.key("c")
         assert sess.mode == "composite"
@@ -572,7 +563,7 @@ class TestViewerAxisUI:
         from fontrx.scene.interactive import InteractiveSession
 
         sess = InteractiveSession(
-            self._vf(), "A", 96, 64, RasterEngine(backend="jnp"))
+            self._vf(), "A", 96, 64, RasterEngine())
         httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(sess))
         httpd.daemon_threads = True
         t = threading.Thread(target=httpd.serve_forever, daemon=True)

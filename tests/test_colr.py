@@ -96,7 +96,7 @@ class TestColorRender:
         font = Font.open(COLRTEST)
         gids = [font.glyph_index(c) for c in "ABC"]
         return color_tiles(
-            font, gids, 64, RasterEngine(backend="jnp"), samples=2)
+            font, gids, 64, RasterEngine(), samples=2)
 
     def test_layer_stack_order(self, tiles):
         A = tiles[0]
@@ -128,7 +128,7 @@ class TestColorRender:
 
         font = Font.open(COLRTEST)
         t = color_tiles(
-            font, [0], 64, RasterEngine(backend="jnp"),
+            font, [0], 64, RasterEngine(),
             foreground=(10, 20, 30, 255))
         # .notdef has no outline at all -> all background
         assert (t[0] == 255).all()
@@ -139,7 +139,7 @@ class TestColorRender:
 
         font = Font.open(COLRTEST)
         gid = font.glyph_index("A")
-        eng = RasterEngine(backend="jnp")
+        eng = RasterEngine()
         t0 = color_tiles(font, [gid], 64, eng, palette=0)
         t1 = color_tiles(font, [gid], 64, eng, palette=1)
         assert tuple(t1[0][32, 32]) == (255, 255, 255)  # white small sq
@@ -210,7 +210,7 @@ class TestColorInteractive:
 
         sess = InteractiveSession(
             Font.open(COLRTEST), "AB", 256, 128,
-            RasterEngine(backend="jnp"), mode="color")
+            RasterEngine(), mode="color")
         f = sess.frame()
         assert f.shape == (128, 256, 3)
         assert (f != 255).any(axis=2).sum() > 1000
@@ -225,7 +225,7 @@ class TestColorInteractive:
 
         s1 = InteractiveSession(
             Font.open(COLRTEST), "A", 128, 128,
-            RasterEngine(backend="jnp"))
+            RasterEngine())
         seen = set()
         for _ in range(3):
             s1.cycle_mode()
@@ -233,7 +233,7 @@ class TestColorInteractive:
         assert seen == {"direct", "composite", "color"}
 
         s2 = InteractiveSession(
-            dejavu, "A", 128, 128, RasterEngine(backend="jnp"))
+            dejavu, "A", 128, 128, RasterEngine())
         seen = set()
         for _ in range(2):
             s2.cycle_mode()
@@ -249,7 +249,7 @@ class TestColorInteractive:
         font = Font.open(COLRTEST)
         layout = layout_text(font, "A")
         pr = PageRenderer(font, layout, 128, 128,
-                          RasterEngine(backend="jnp"))
+                          RasterEngine())
         view = ViewTransform.init(font.info.units_per_em, 128, 128)
         a = pr.render_color(view)
         key1 = pr._color_cache[0]
@@ -320,7 +320,7 @@ class TestColrV1:
         assert tree[0] == "composite" and tree[1] == 13  # SCREEN
         tiles, _ = color_glyph_tiles(
             vfont, [vfont.glyph_index("J")], 64,
-            RasterEngine(backend="jnp"))
+            RasterEngine())
         t = np.asarray(tiles[0])
         h = t.shape[0]
         mid = t[h // 2, h // 2]
@@ -365,7 +365,7 @@ class TestColrV1:
 
         tiles, grids = color_glyph_tiles(
             vfont, [vfont.glyph_index("I")], 64,
-            RasterEngine(backend="jnp"))
+            RasterEngine())
         t = np.asarray(tiles[0])
         g = grids[0]
         ink = t[..., 3] > 0.5
@@ -385,7 +385,7 @@ class TestColrV1:
         from fontrx.engine.colorglyphs import color_glyph_tiles
         from fontrx.engine.raster import RasterEngine
 
-        eng = RasterEngine(backend="jnp")
+        eng = RasterEngine()
         tiles, _ = color_glyph_tiles(
             vfont, [vfont.glyph_index("H")], 64, eng)
         t = np.asarray(tiles[0])
@@ -410,7 +410,7 @@ class TestColrV1:
 
         tiles, grids = color_glyph_tiles(
             vfont, [vfont.glyph_index("G")], 64,
-            RasterEngine(backend="jnp"))
+            RasterEngine())
         t = np.asarray(tiles[0])
         g = grids[0]
         # pixel at em (800, 500): angle ~0 -> red
@@ -444,7 +444,7 @@ class TestColrV1:
         from fontrx.engine.colorglyphs import color_glyph_tiles
         from fontrx.engine.raster import RasterEngine
 
-        eng = RasterEngine(backend="jnp")
+        eng = RasterEngine()
         tiles, grids = color_glyph_tiles(
             vfont, [vfont.glyph_index("F")], 64, eng)
         t = np.asarray(tiles[0])
@@ -535,7 +535,7 @@ class TestGradientRender:
         font = Font.open(COLRV1TEST)
         gids = [font.glyph_index(c) for c in "CDE"]
         tiles, grids = color_glyph_tiles(
-            font, gids, 64, RasterEngine(backend="jnp"))
+            font, gids, 64, RasterEngine())
         return np.asarray(tiles), grids
 
     @staticmethod
@@ -622,7 +622,7 @@ class TestVariableColr:
         from fontrx.engine.colorglyphs import color_glyph_tiles
         from fontrx.engine.raster import RasterEngine
 
-        eng = RasterEngine(backend="jnp")
+        eng = RasterEngine()
         f = Font.open(self.VARCOLR)
         gid = f.glyph_index("A")
         t0, g0 = color_glyph_tiles(f, [gid], 64, eng)
@@ -771,7 +771,7 @@ class TestClipList:
 
         f = Font.open(COLRV1TEST)
         tiles, grids = color_glyph_tiles(
-            f, [f.glyph_index("C")], 64, RasterEngine(backend="jnp"))
+            f, [f.glyph_index("C")], 64, RasterEngine())
         t = np.asarray(tiles[0])
         g = grids[0]
         ink_cols = np.nonzero((t[..., 3] > 0.5).any(axis=0))[0]

@@ -90,7 +90,7 @@ class TestCorpus:
         from fontrx.pack.segments import pack_glyph
 
         f = corpus_font
-        eng = RasterEngine(backend="jnp")
+        eng = RasterEngine()
         step = max(1, f.num_glyphs // 16)
         gids = list(range(1, f.num_glyphs, step))
         gids += [f.glyph_index(c) for c in "Ag@"]
@@ -253,8 +253,8 @@ class TestCjkCorpus:
                 w_ours != 0, w_pen != 0), gid
 
     def test_dense_engine_path_matches_oracle(self, cjk):
-        """The shipped dense-regime engine path (column-major kernel in
-        interpret mode) over real 200+-segment glyphs."""
+        """The engine's row-binned route over real 200+-segment glyphs
+        (x-sorted packs, the dense CJK regime)."""
         import jax.numpy as jnp
 
         from fontrx.engine.raster import RasterEngine
@@ -266,7 +266,7 @@ class TestCjkCorpus:
         glyphs = [cjk.load_glyph(i) for i in (1, 50, 333)]
         batch = pack_glyphs(glyphs, sort="x")
         assert batch.capacity > 128  # dense path engages
-        eng = RasterEngine(backend="interpret")
+        eng = RasterEngine()
         size = 64
         grids = [
             RasterGrid.fixed_tile(tuple(b), float(size),

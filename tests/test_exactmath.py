@@ -1,4 +1,4 @@
-"""Correctly-rounded math emulation + v2 exact-mode + direct-page tests."""
+"""Correctly-rounded math emulation + exact routes + direct-page tests."""
 
 import numpy as np
 import pytest
@@ -72,56 +72,47 @@ class TestExactMath:
         s = np.asarray(jax.jit(sqrt_cr)(d))
         np.testing.assert_array_equal(s, np.sqrt(np.asarray(d)))
 
-    def test_recip_variants_match_production(self, rng):
-        """The reciprocal scheme (measured slower in-kernel, kept for
-        A/B re-validation — docs/RESULTS.md) computes the same
-        correctly-rounded results as the production scheme."""
+    @pytest.mark.parametrize("scale", [64 / 2048, 48 / 2048, 1.0])
+    def test_sample_coords_match_grid(self, scale):
+        """The routes' row/column sample program (int add, f32 add of
+        the offset, ``div_cr`` by the scale) equals RasterGrid's IEEE
+        sample coordinates."""
         import jax
         import jax.numpy as jnp
 
-        from fontrx.kernels.exactmath import (
-            div_cr, div_cr_recip, sqrt_cr, sqrt_cr_recip)
+        from fontrx.kernels.exactmath import div_cr
+        from fontrx.kernels.grid import RasterGrid
 
-        a = (rng.random(50000).astype(np.float32) * 4000 - 2000)
-        b = rng.integers(1, 16384, 50000).astype(np.float32)
-        b = np.where(rng.random(50000) < 0.5, b, -b).astype(np.float32)
-        q_prod = np.asarray(jax.jit(div_cr)(jnp.array(a), jnp.array(b)))
-        q_rec = np.asarray(jax.jit(div_cr_recip)(jnp.array(a), jnp.array(b)))
-        np.testing.assert_array_equal(q_prod, q_rec)
-        np.testing.assert_array_equal(q_rec, a / b)
-
-        d = rng.random(50000).astype(np.float32) * 4e6
-        s_prod = np.asarray(jax.jit(sqrt_cr)(jnp.array(d)))
-        s_rec = np.asarray(jax.jit(sqrt_cr_recip)(jnp.array(d)))
-        np.testing.assert_array_equal(s_prod, s_rec)
-        np.testing.assert_array_equal(s_rec, np.sqrt(d))
+        grid = RasterGrid(300, 300, -37, 241, float(np.float32(scale)))
+        xs, ys = grid.sample_coords()
+        cx = np.asarray(jax.jit(lambda: div_cr(
+            (grid.min_x + jnp.arange(300)).astype(jnp.float32) + 0.0,
+            jnp.float32(grid.scale)))())
+        cy = np.asarray(jax.jit(lambda: div_cr(
+            (grid.max_y - jnp.arange(300)).astype(jnp.float32) + 0.0,
+            jnp.float32(grid.scale)))())
+        np.testing.assert_array_equal(cx, xs)
+        np.testing.assert_array_equal(cy, ys)
 
 
-class TestV2ExactMode:
-    @pytest.mark.parametrize("exact", [False, True])
-    def test_interpret_bitexact(self, dejavu, exact):
-        import jax.numpy as jnp
-
+class TestRouteExactMode:
+    @pytest.mark.parametrize("ch,size", [("g", 128), ("Q", 72)])
+    def test_route_bitexact(self, dejavu, ch, size):
+        """The XLA route — correctly rounded division and sqrt in the
+        root solve — equals the IEEE oracle."""
+        from fontrx.engine.raster import RasterEngine
         from fontrx.kernels import oracle
         from fontrx.kernels.grid import RasterGrid
-        from fontrx.kernels.winding_pallas_v2 import winding_pallas_v2_batch
         from fontrx.pack.segments import glyph_segments
 
-        g, _ = dejavu.get_glyph("g")
+        g, _ = dejavu.get_glyph(ch)
         seg = glyph_segments(g)
         grid = RasterGrid.for_glyph_box(
-            (g.box.x_min, g.box.y_min, g.box.x_max, g.box.y_max), 128, 2048
+            (g.box.x_min, g.box.y_min, g.box.x_max, g.box.y_max), size, 2048
         ).padded(128, 128)
-        out = winding_pallas_v2_batch(
-            jnp.asarray(seg)[None],
-            jnp.array([grid.min_x], jnp.int32),
-            jnp.array([grid.max_y], jnp.int32),
-            jnp.float32(grid.scale),
-            height=grid.height, width=grid.width,
-            interpret=True, exact=exact,
-        )
+        out = RasterEngine().winding_glyph(seg, grid)
         np.testing.assert_array_equal(
-            np.asarray(out[0]), oracle.winding_map(seg, grid)
+            np.asarray(out), oracle.winding_map(seg, grid)
         )
 
 
@@ -137,7 +128,7 @@ class TestDirectPage:
 
         layout = layout_text(dejavu, "ox")
         w, h = 256, 128
-        pr = PageRenderer(dejavu, layout, w, h, RasterEngine(backend="jnp"))
+        pr = PageRenderer(dejavu, layout, w, h, RasterEngine())
         view = ViewTransform.init(dejavu.info.units_per_em, w, h)
         page = pr.render_direct(view)
         assert page.shape == (h, w)
@@ -165,7 +156,7 @@ class TestDirectPage:
         from fontrx.scene.interactive import InteractiveSession
 
         sess = InteractiveSession(
-            dejavu, "Hi", 256, 128, RasterEngine(backend="jnp"), mode="direct"
+            dejavu, "Hi", 256, 128, RasterEngine(), mode="direct"
         )
         f0 = sess.frame()
         assert f0.any()
@@ -174,12 +165,14 @@ class TestDirectPage:
         assert not np.array_equal(f0, f1)
 
 
-class TestFusedCoverage:
+class TestKernelCoverage:
     def test_matches_multipass(self, dejavu):
+        """The engine's binned coverage equals the traceable unculled
+        multipass reference on a tall non-square grid."""
         import jax.numpy as jnp
 
+        from fontrx.engine.raster import RasterEngine
         from fontrx.kernels.coverage import coverage_batch
-        from fontrx.kernels.coverage_pallas import coverage_pallas_batch
         from fontrx.kernels.grid import RasterGrid
         from fontrx.pack.segments import glyph_segments
 
@@ -187,25 +180,22 @@ class TestFusedCoverage:
         seg = glyph_segments(g)[None]
         grid = RasterGrid.for_glyph_box(
             (g.box.x_min, g.box.y_min, g.box.x_max, g.box.y_max), 96, 2048
-        ).padded(128, 128)
-        args = (
-            jnp.asarray(seg),
-            jnp.array([grid.min_x], jnp.int32),
-            jnp.array([grid.max_y], jnp.int32),
-            jnp.float32(grid.scale),
-        )
-        ref = np.asarray(
-            coverage_batch(*args, height=grid.height, width=grid.width,
-                           samples=2)
-        )
-        fused = np.asarray(
-            coverage_pallas_batch(*args, height=grid.height,
-                                  width=grid.width, samples=2,
-                                  interpret=True)
-        )
-        np.testing.assert_array_equal(ref, fused)
+        ).padded(16, 16)
+        mx = np.array([grid.min_x], np.int32)
+        my = np.array([grid.max_y], np.int32)
+        ref = np.asarray(coverage_batch(
+            jnp.asarray(seg), jnp.asarray(mx), jnp.asarray(my),
+            jnp.float32(grid.scale), height=grid.height, width=grid.width,
+            samples=2))
+        out = np.asarray(RasterEngine().coverage_batch(
+            seg, mx, my, grid.scale, height=grid.height, width=grid.width,
+            samples=2))
+        np.testing.assert_array_equal(ref, out)
 
     def test_engine_coverage_dispatch(self, dejavu):
+        """Concrete inputs bin on the host, traced ones read every
+        segment in every band: the coverage is the same."""
+        import jax
         import jax.numpy as jnp
 
         from fontrx.engine.raster import RasterEngine
@@ -223,14 +213,15 @@ class TestFusedCoverage:
             jnp.array([grid.max_y], jnp.int32),
             grid.scale,
         )
+        eng = RasterEngine()
         a = np.asarray(
-            RasterEngine(backend="jnp").coverage_batch(
+            eng.coverage_batch(
                 *args, height=grid.height, width=grid.width, samples=2
             )
         )
-        b = np.asarray(
-            RasterEngine(backend="interpret").coverage_batch(
-                *args, height=grid.height, width=grid.width, samples=2
-            )
-        )
+        b = np.asarray(jax.jit(
+            lambda s, x, y: eng.coverage_batch(
+                s, x, y, grid.scale, height=grid.height, width=grid.width,
+                samples=2)
+        )(*args[:3]))
         np.testing.assert_array_equal(a, b)

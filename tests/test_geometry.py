@@ -93,7 +93,7 @@ class TestTriangulatedGlyph:
             loopblinn_batch,
             pad_triangles,
         )
-        from fontrx.kernels.winding_jnp import winding_batch
+        from fontrx.kernels.winding import winding_batch
         from fontrx.pack.segments import glyph_segments
 
         g, _ = dejavu.get_glyph(ch)
@@ -220,7 +220,7 @@ class TestSelfIntersection:
             debug = False
             size = 50
 
-        out = cli_main._render(FakeFont(), "X", Cfg(), RasterEngine(backend="jnp"))
+        out = cli_main._render(FakeFont(), "X", Cfg(), RasterEngine())
         np.testing.assert_array_equal(out[:, :, 0], want)
 
 

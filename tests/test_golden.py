@@ -59,7 +59,7 @@ def test_engine_matches_golden(dejavu):
     """The engine path (jnp on CPU) reproduces the golden hashes too."""
     from fontrx.engine.raster import RasterEngine
 
-    eng = RasterEngine(backend="jnp")
+    eng = RasterEngine()
     for (ch, size), expected in list(GOLDEN_WINDING.items())[:4]:
         g, _ = dejavu.get_glyph(ch)
         w = np.asarray(eng.winding_glyph(glyph_segments(g), _grid(g, size)))

@@ -1,12 +1,11 @@
-"""The driver's entry points must stay green.
+"""The entry points must stay green.
 
-``dryrun_multichip`` is the driver-mandated multi-chip validation: it
-must provision (or reuse) an 8-device mesh and run the *Pallas* kernels
-under ``shard_map`` — interpret mode off-TPU — on both the 1-D glyph
-mesh and the 2-D glyph x row-band mesh, cross-checked against the jnp
-kernel.  Here the conftest's virtual 8-device CPU mesh is already
+``dryrun_multichip`` is the multi-device validation: it must provision
+(or reuse) an 8-device mesh and run every sharded raster family under
+``shard_map`` on the engine's route, cross-checked against the plain
+XLA route.  Here the conftest's virtual 8-device CPU mesh is already
 initialized, so the dry run exercises the reuse path; the
-self-provisioning path is what the driver runs in a fresh process.
+self-provisioning path is what a fresh process runs.
 """
 
 import jax

@@ -1,5 +1,5 @@
-"""Kernel conformance: jnp and Pallas (interpret) backends vs the NumPy
-oracle, bit-exact (SURVEY §4 items 2/4)."""
+"""Kernel conformance: the row-binned XLA route vs the NumPy oracle,
+bit-exact (SURVEY §4 items 2/4)."""
 
 import numpy as np
 import pytest
@@ -22,7 +22,7 @@ def glyph_case(font, ch, size):
 class TestJnpKernel:
     @pytest.mark.parametrize("ch", list("AQg@j&"))
     def test_bitexact_vs_oracle(self, dejavu, ch):
-        from fontrx.kernels.winding_jnp import winding_grid
+        from fontrx.kernels.winding import winding_grid
 
         segs, grid = glyph_case(dejavu, ch, 96)
         wo = oracle.winding_map(segs, grid)
@@ -30,7 +30,7 @@ class TestJnpKernel:
         np.testing.assert_array_equal(wo, wj)
 
     def test_batch_matches_singles(self, dejavu):
-        from fontrx.kernels.winding_jnp import winding_batch
+        from fontrx.kernels.winding import winding_batch
 
         import jax.numpy as jnp
 
@@ -55,34 +55,41 @@ class TestJnpKernel:
             np.testing.assert_array_equal(out[i], wo)
 
 
-class TestPallasInterpret:
+class TestBinnedRoute:
     @pytest.mark.parametrize("ch", list("AQg"))
     def test_bitexact_vs_oracle(self, dejavu, ch):
-        from fontrx.kernels.winding_pallas import winding_pallas_grid
+        from fontrx.engine.raster import RasterEngine
 
         segs, grid = glyph_case(dejavu, ch, 64)
         wo = oracle.winding_map(segs, grid)
-        wp = np.asarray(winding_pallas_grid(segs, grid, interpret=True))
+        wp = np.asarray(RasterEngine().winding_glyph(segs, grid))
         np.testing.assert_array_equal(wo, wp)
 
     def test_random_segment_soup(self, rng):
-        """Pallas vs jnp on random quadratic soups (SURVEY §4 item 4)."""
+        """Host-binned vs unculled bins on random quadratic soups
+        (SURVEY §4 item 4): culling changes no pixel."""
         import jax.numpy as jnp
 
-        from fontrx.kernels.winding_jnp import winding_batch
-        from fontrx.kernels.winding_pallas import winding_pallas_batch
+        from fontrx.kernels.winding import (
+            bin_glyph_rows,
+            full_rows,
+            winding_bins_xla,
+        )
 
         b, s = 3, 16
         segs = rng.integers(-100, 100, (b, s, 3, 2)).astype(np.float32)
         min_x = rng.integers(-10, 10, b).astype(np.int32)
         max_y = rng.integers(50, 80, b).astype(np.int32)
-        args = (jnp.asarray(segs), jnp.asarray(min_x), jnp.asarray(max_y),
-                jnp.float32(0.7))
-        wj = np.asarray(winding_batch(*args, height=64, width=128))
-        wp = np.asarray(
-            winding_pallas_batch(*args, height=64, width=128, interpret=True)
-        )
-        np.testing.assert_array_equal(wj, wp)
+        anchors = (jnp.asarray(min_x), jnp.asarray(max_y), jnp.float32(0.7),
+                   jnp.zeros(2, jnp.float32))
+        out = []
+        for bins in (bin_glyph_rows(segs, max_y, 0.7, 64),
+                     full_rows(jnp.asarray(segs), 64)):
+            out.append(np.asarray(winding_bins_xla(
+                bins.soa, bins.start, bins.count, *anchors,
+                n_bands=bins.n_bands, cap=bins.cap, width=128)))
+        np.testing.assert_array_equal(out[0], out[1])
+        assert (out[0] != 0).any()
 
 
 class TestEngine:
@@ -90,7 +97,7 @@ class TestEngine:
         from fontrx.engine.raster import RasterEngine
 
         segs, grid = glyph_case(dejavu, "A", 48)
-        eng = RasterEngine(backend="jnp")
+        eng = RasterEngine()
         w = np.asarray(eng.winding_glyph(segs, grid))
         assert w.shape == (grid.height, grid.width)
         np.testing.assert_array_equal(w, oracle.winding_map(segs, grid))
@@ -99,7 +106,7 @@ class TestEngine:
         from fontrx.engine.raster import RasterEngine
 
         segs, grid = glyph_case(dejavu, "A", 48)
-        eng = RasterEngine(backend="jnp")
+        eng = RasterEngine()
         w = eng.winding_glyph(segs, grid)
         np.testing.assert_array_equal(
             np.asarray(eng.fill(w)), oracle.render_fill(segs, grid)
@@ -115,7 +122,7 @@ class TestAtlas:
         from fontrx.engine.raster import RasterEngine
 
         sheet, layout = render_atlas(
-            dejavu, "ABCDEFGHIJKLMNOP", 64, 64, RasterEngine(backend="jnp")
+            dejavu, "ABCDEFGHIJKLMNOP", 64, 64, RasterEngine()
         )
         assert sheet.shape == (layout.height, layout.width)
         assert layout.cols * layout.rows >= 16
@@ -126,11 +133,10 @@ class TestAtlas:
 
 
 class TestSharding:
-    @pytest.mark.parametrize("use_pallas", [False, True])
-    def test_virtual_8_device_mesh(self, dejavu, use_pallas):
-        """Both the jnp kernel and the REAL pod composition —
-        shard_map wrapping the Pallas kernel (interpret mode on the CPU
-        mesh) — must produce oracle-exact shards."""
+    @pytest.mark.parametrize("replicate_out", [False, True])
+    def test_virtual_8_device_mesh(self, dejavu, replicate_out):
+        """shard_map over the route must produce oracle-exact shards,
+        glyph-sharded or gathered onto every device."""
         import jax
         import jax.numpy as jnp
 
@@ -152,10 +158,10 @@ class TestSharding:
         )
         out = winding_sharded(
             seg, mx, my, jnp.float32(grids[0].scale),
-            height=64, width=128, mesh=mesh, use_pallas=use_pallas,
-            interpret=use_pallas,
+            height=64, width=128, mesh=mesh, replicate_out=replicate_out,
         )
         assert len(out.sharding.device_set) == 8
+        assert out.sharding.is_fully_replicated == replicate_out
         out = np.asarray(out)
         for i, g in enumerate(grids):
             gg = RasterGrid(128, 64, g.min_x, g.max_y, g.scale)
@@ -187,8 +193,8 @@ class TestGraftEntry:
 
 
 class TestSharding2D:
-    @pytest.mark.parametrize("use_pallas", [False, True])
-    def test_glyph_by_row_mesh(self, dejavu, use_pallas):
+    @pytest.mark.parametrize("transposed", [False, True])
+    def test_glyph_by_row_mesh(self, dejavu, transposed):
         import jax
         import jax.numpy as jnp
 
@@ -202,14 +208,13 @@ class TestSharding2D:
         grids = [
             RasterGrid.fixed_tile(tuple(b), 128, 2048, 128) for b in batch.boxes
         ]
-        mesh = make_mesh_2d(2, 4)
+        mesh = make_mesh_2d(*((4, 2) if transposed else (2, 4)))
         out = winding_sharded_2d(
             jnp.asarray(batch.segments),
             jnp.array([g.min_x for g in grids], jnp.int32),
             jnp.array([g.max_y for g in grids], jnp.int32),
             jnp.float32(grids[0].scale),
-            height=128, width=128, mesh=mesh, use_pallas=use_pallas,
-            interpret=use_pallas,
+            height=128, width=128, mesh=mesh,
         )
         assert len(out.sharding.device_set) == 8
         for i, g in enumerate(grids):
@@ -248,7 +253,7 @@ class TestSharding2D:
         out = winding_sharded_2d(
             jnp.asarray(allsegs), jnp.zeros(1, jnp.int32),
             jnp.full(1, h - 1, jnp.int32), jnp.float32(1.0),
-            height=h, width=w, mesh=mesh, use_pallas=False,
+            height=h, width=w, mesh=mesh,
         )
         assert len(out.sharding.device_set) == 8
         xs = np.arange(w, dtype=np.float32)
@@ -257,169 +262,266 @@ class TestSharding2D:
         np.testing.assert_array_equal(np.asarray(out[0]), wp)
 
 
+def _oracle_tiles(segs, min_x, max_y, scale, size, offset=(0.0, 0.0)):
+    """Oracle winding of each glyph over its ``size`` grid, sample
+    offset included (the routes' ``(f32(i) + o) / scale`` program)."""
+    out = []
+    for i in range(len(segs)):
+        xs = ((min_x[i] + np.arange(size)).astype(np.float32)
+              + np.float32(offset[0])) / np.float32(scale)
+        ys = ((max_y[i] - np.arange(size)).astype(np.float32)
+              + np.float32(offset[1])) / np.float32(scale)
+        out.append(oracle.winding_at(segs[i], xs[None, :], ys[:, None]))
+    return np.stack(out)
+
+
 class TestBigBatchChunking:
     def test_batch_over_kernel_cap_matches(self, dejavu):
-        """Batches beyond the SMEM-anchored kernel cap split into
-        sub-launches transparently."""
+        """A batch of many jobs (7 glyphs x 3 bands) rasters
+        oracle-exact glyph by glyph."""
+        from fontrx.engine.raster import RasterEngine
+        from fontrx.pack.segments import pack_glyphs
+
+        glyphs = [dejavu.get_glyph(c)[0] for c in "ABCDEFG"]
+        batch = pack_glyphs(glyphs)
+        eng = RasterEngine()
+        w, grids = eng.winding_packed(batch, 48, 2048, 48)
+        w = np.asarray(w)
+        for i, g in enumerate(grids):
+            xs, ys = g.sample_coords()
+            np.testing.assert_array_equal(
+                w[i],
+                oracle.winding_at(batch.segments[i], xs[None, :], ys[:, None]),
+            )
+
+
+class TestBinning:
+    """Host row binning (``kernels/winding.py:bin_glyph_rows``): every
+    job lists exactly the glyph's live segments whose control hull can
+    reach its band, capacities bucket to powers of two, and bands are
+    anchored at multiples of BAND_ROWS from each glyph's top row."""
+
+    def _bins(self, size=64, n=3, segn=120, seed=21):
+        from benchmarks.cjk import UPEM, synthetic_strokes
+        from fontrx.kernels.winding import bin_glyph_rows
+
+        rng = np.random.default_rng(seed)
+        segs = np.stack([synthetic_strokes(rng, segn) for _ in range(n)])
+        segs[:, -7:] = 0.0  # padding rows
+        scale = np.float32(size / UPEM)
+        max_y = np.full(n, size - 1, np.int32)
+        return segs, scale, max_y, bin_glyph_rows(segs, max_y, scale, size)
+
+    @pytest.mark.parametrize("size", [16, 40, 64, 100])
+    def test_jobs_and_capacity_buckets(self, size):
+        from fontrx.kernels.winding import BAND_ROWS
+
+        segs, scale, max_y, bins = self._bins(size=size)
+        count = np.asarray(bins.count)
+        start = np.asarray(bins.start)
+        assert bins.n_bands == -(-size // BAND_ROWS)
+        assert len(count) == len(segs) * bins.n_bands
+        assert bins.cap >= count.max() and bins.cap & (bins.cap - 1) == 0
+        assert bins.cap < 2 * max(count.max(), 8)
+        # ranges tile the stream without gaps; padding rows never listed
+        np.testing.assert_array_equal(start[1:], np.cumsum(count)[:-1])
+        soa = np.asarray(bins.soa)
+        assert soa.shape[1] >= count.sum()
+        live = soa[:, : count.sum()]
+        assert (np.abs(live).sum(axis=0) > 0).all()
+
+    @pytest.mark.parametrize("band", [0, 1, 3])
+    def test_band_lists_exactly_the_reaching_segments(self, band):
+        from fontrx.kernels.winding import (
+            BAND_ROWS,
+            HULL_GUARD,
+            SAMPLE_MARGIN_PX,
+        )
+
+        segs, scale, max_y, bins = self._bins(size=64)
+        soa = np.asarray(bins.soa)
+        start = np.asarray(bins.start)
+        count = np.asarray(bins.count)
+        for b in range(len(segs)):
+            j = b * bins.n_bands + band
+            got = soa[:, start[j] : start[j] + count[j]].T.reshape(-1, 3, 2)
+            hi = (max_y[b] - band * BAND_ROWS + SAMPLE_MARGIN_PX) / scale
+            lo = (max_y[b] - band * BAND_ROWS - BAND_ROWS + 1
+                  - SAMPLE_MARGIN_PX) / scale
+            live = np.abs(segs[b]).reshape(len(segs[b]), -1).sum(1) > 0
+            ys = segs[b][..., 1]
+            want = segs[b][live & (ys.max(1) >= lo - HULL_GUARD)
+                           & (ys.min(1) <= hi + HULL_GUARD)]
+            key = lambda a: sorted(map(tuple, a.reshape(len(a), -1)))
+            assert key(got) == key(want)
+
+    def test_empty_batch(self):
+        """A batch with no glyphs (a colour font whose run has only
+        bitmap glyphs) rasters to an empty array."""
+        from fontrx.engine.raster import RasterEngine
+
+        out = RasterEngine().winding_batch(
+            np.zeros((0, 8, 3, 2), np.float32), np.zeros(0, np.int32),
+            np.zeros(0, np.int32), 0.5, height=24, width=20)
+        assert out.shape == (0, 24, 20)
+
+    def test_traced_inputs_bin_unculled(self):
+        """Inside jit the engine cannot bin on the host: every band
+        reads all of its glyph's segments, and the result is the same."""
+        import jax
         import jax.numpy as jnp
 
-        from fontrx.engine import raster as raster_mod
         from fontrx.engine.raster import RasterEngine
-        from fontrx.pack.segments import glyph_segments, pack_glyphs
 
-        old = raster_mod.MAX_KERNEL_BATCH
-        raster_mod.MAX_KERNEL_BATCH = 3
-        try:
-            glyphs = [dejavu.get_glyph(c)[0] for c in "ABCDEFG"]
-            batch = pack_glyphs(glyphs)
-            eng = RasterEngine(backend="jnp")
-            w, grids = eng.winding_packed(batch, 48, 2048, 48)
-            w = np.asarray(w)
-            for i, g in enumerate(grids):
-                xs, ys = g.sample_coords()
-                np.testing.assert_array_equal(
-                    w[i],
-                    oracle.winding_at(batch.segments[i], xs[None, :], ys[:, None]),
-                )
-        finally:
-            raster_mod.MAX_KERNEL_BATCH = old
+        segs, scale, max_y, _ = self._bins(size=32, n=2)
+        eng = RasterEngine()
+        mx = np.zeros(2, np.int32)
+        host = np.asarray(eng.winding_batch(segs, mx, max_y, scale,
+                                            height=32, width=32))
+        traced = np.asarray(jax.jit(
+            lambda s, x, y: eng.winding_batch(s, x, y, scale, height=32,
+                                              width=32))(
+            jnp.asarray(segs), jnp.asarray(mx), jnp.asarray(max_y)))
+        np.testing.assert_array_equal(host, traced)
+        np.testing.assert_array_equal(
+            host, _oracle_tiles(segs, mx, max_y, scale, 32))
+
+
+class TestPlatformCheck:
+    """One dispatch decision (``engine/raster.py``): the GPU and the
+    CPU run the XLA route; any other platform is an error, never a
+    silent fallback."""
+
+    @pytest.mark.parametrize("platform", ["cpu", "gpu"])
+    def test_supported_platforms(self, monkeypatch, platform):
+        import jax
+
+        from fontrx.engine import raster
+
+        monkeypatch.setattr(jax, "default_backend", lambda: platform)
+        assert raster.check_platform() == platform
+        assert raster.RasterEngine().platform == platform
+
+    @pytest.mark.parametrize("platform", ["rocm", "metal"])
+    def test_unknown_platform_is_an_error(self, monkeypatch, platform):
+        import jax
+
+        from fontrx.engine import raster
+
+        monkeypatch.setattr(jax, "default_backend", lambda: platform)
+        with pytest.raises(RuntimeError, match="no raster route"):
+            raster.RasterEngine()
 
 
 class TestOtherFontsParity:
     @pytest.mark.parametrize("fixture", ["dejavu_serif"])
     def test_serif_kernel_parity(self, fixture, request):
-        """Kernel == oracle on serif curves (heavier use of quadratics
+        """Route == oracle on serif curves (heavier use of quadratics
         and hairline features than the sans)."""
-        import jax.numpy as jnp
+        self._parity(request.getfixturevalue(fixture), 96)
 
-        from fontrx.kernels.winding_pallas_v2 import winding_pallas_v2_batch
+    def test_serif_kernel_parity_small(self, dejavu_serif):
+        """The same at 40 px, where one band holds most of a glyph."""
+        self._parity(dejavu_serif, 40)
+
+    @staticmethod
+    def _parity(dejavu_serif, size):
+        from fontrx.engine.raster import RasterEngine
         from fontrx.pack.segments import glyph_segments
 
-        font = request.getfixturevalue(fixture)
+        eng = RasterEngine()
         for ch in "SgQ&":
-            g, _ = font.get_glyph(ch)
+            g, _ = dejavu_serif.get_glyph(ch)
             segs = glyph_segments(g)
             grid = RasterGrid.for_glyph_box(
                 (g.box.x_min, g.box.y_min, g.box.x_max, g.box.y_max),
-                96, font.info.units_per_em,
+                size, dejavu_serif.info.units_per_em,
             ).padded(128, 128)
-            out = winding_pallas_v2_batch(
-                jnp.asarray(segs)[None],
-                jnp.array([grid.min_x], jnp.int32),
-                jnp.array([grid.max_y], jnp.int32),
-                jnp.float32(grid.scale),
-                height=grid.height, width=grid.width, interpret=True,
-            )
+            out = eng.winding_glyph(segs, grid)
             xs, ys = grid.sample_coords()
             np.testing.assert_array_equal(
-                np.asarray(out[0]),
+                np.asarray(out),
                 oracle.winding_at(segs, xs[None, :], ys[:, None]),
                 err_msg=ch,
             )
 
 
 class TestHighSegmentCounts:
-    """CJK-regime correctness: the v2 kernel's segment streaming and
-    strip y-cull must stay bit-exact at 200+ segments/glyph (the regime
-    they were designed for, ``winding_pallas_v2.py:23-25``)."""
+    """CJK-regime correctness: row binning, chunk streaming and hull
+    culls must stay bit-exact at 200+ segments/glyph."""
 
-    @pytest.mark.parametrize("guard", [False, True])
-    def test_synthetic_300seg_bitexact(self, guard):
-        import jax.numpy as jnp
-
+    @pytest.mark.parametrize("shuffled", [False, True])
+    def test_synthetic_300seg_bitexact(self, shuffled):
         from benchmarks.cjk import UPEM, synthetic_strokes
-        from fontrx.kernels import oracle
-        from fontrx.kernels.winding_pallas_v2 import winding_pallas_v2_batch
+        from fontrx.engine.raster import RasterEngine
 
         rng = np.random.default_rng(5)
         segs = np.stack([synthetic_strokes(rng, 300) for _ in range(2)])
+        if shuffled:  # every band's range spans the whole glyph
+            segs = segs[:, rng.permutation(300)]
         size = 128
         scale = np.float32(size / UPEM)
+        mx = np.zeros(2, np.int32)
         max_y = np.full(2, size - 1, np.int32)
-        out = np.asarray(winding_pallas_v2_batch(
-            jnp.asarray(segs),
-            jnp.zeros(2, jnp.int32),
-            jnp.asarray(max_y),
-            jnp.float32(scale),
-            height=128, width=128, exact=True, guard=guard, interpret=True,
-        ))
-        for i in range(2):
-            xs = np.arange(size).astype(np.float32) / scale
-            ys = (max_y[i] - np.arange(size)).astype(np.float32) / scale
-            w = oracle.winding_at(segs[i], xs[None, :], ys[:, None])
-            np.testing.assert_array_equal(out[i], w, err_msg=f"glyph {i}")
+        out = np.asarray(RasterEngine().winding_batch(
+            segs, mx, max_y, scale, height=size, width=size))
+        np.testing.assert_array_equal(
+            out, _oracle_tiles(segs, mx, max_y, scale, size))
 
-    @pytest.mark.parametrize("size,lane_pack,seg_chunk", [
-        (64, 2, 64), (64, 2, 32), (32, 4, 32), (32, 2, 64),
+    @pytest.mark.parametrize("size,offset", [
+        (64, (0.0, 0.0)), (64, (0.25, -0.25)), (32, (-0.5, 0.5)),
+        (32, (0.0, -1.0)),
     ])
-    def test_dense_lane_pack_bitexact(self, size, lane_pack, seg_chunk):
-        """Lane-packed dense kernel (segment chunk groups sharing the
-        128 row lanes) vs lane_pack=1 and the oracle: every
-        (segment, row) element runs the same float program and the
-        cross-group fold is an integer winding sum, so rasters must be
-        bit-identical (device A/B: tpu_dense_lanepack.py, 0
-        mismatches)."""
+    def test_kernel_matches_oracle_at_offsets(self, size, offset):
+        """The route at sample offsets inside the binning margin (one
+        binning serves every MSAA/LCD offset)."""
         import jax.numpy as jnp
 
         from benchmarks.cjk import UPEM, synthetic_strokes
-        from fontrx.kernels import oracle
-        from fontrx.kernels.winding_dense import winding_dense_batch
+        from fontrx.kernels.winding import bin_glyph_rows, winding_bins_xla
         from fontrx.pack.segments import xsort_segments
 
         rng = np.random.default_rng(7)
         segs = np.stack(
-            [xsort_segments(synthetic_strokes(rng, 280))
-             for _ in range(3)])
+            [xsort_segments(synthetic_strokes(rng, 280)) for _ in range(3)])
         scale = np.float32(size / UPEM)
+        mx = np.zeros(3, np.int32)
         max_y = np.full(3, size - 1, np.int32)
-        kw = dict(height=size, width=size, exact=True, interpret=True)
-        ref = np.asarray(winding_dense_batch(
-            jnp.asarray(segs), jnp.zeros(3, jnp.int32),
-            jnp.asarray(max_y), jnp.float32(scale), **kw))
-        out = np.asarray(winding_dense_batch(
-            jnp.asarray(segs), jnp.zeros(3, jnp.int32),
+        bins = bin_glyph_rows(segs, max_y, scale, size)
+        out = np.asarray(winding_bins_xla(
+            bins.soa, bins.start, bins.count, jnp.asarray(mx),
             jnp.asarray(max_y), jnp.float32(scale),
-            lane_pack=lane_pack, seg_chunk=seg_chunk, **kw))
-        np.testing.assert_array_equal(out, ref)
-        for i in range(3):
-            xs = np.arange(size).astype(np.float32) / scale
-            ys = (max_y[i] - np.arange(size)).astype(np.float32) / scale
-            w = oracle.winding_at(segs[i], xs[None, :], ys[:, None])
-            np.testing.assert_array_equal(
-                out[i, :size, :size], w, err_msg=f"glyph {i}")
+            jnp.asarray(offset, jnp.float32), n_bands=bins.n_bands,
+            cap=bins.cap, width=size))[:, :size]
+        np.testing.assert_array_equal(
+            out, _oracle_tiles(segs, mx, max_y, scale, size, offset))
 
     def test_winding_invariant_under_segment_order(self):
         """Winding is a sum of per-segment contributions — shuffling the
-        segment stream (which changes chunk y-coherence and thus which
-        chunks the strip cull skips) must not change a single pixel."""
-        import jax.numpy as jnp
-
+        segment stream (which changes every job's chunk coherence and
+        which chunks the hull culls skip) must not change a pixel."""
         from benchmarks.cjk import UPEM, synthetic_strokes
-        from fontrx.kernels.winding_pallas_v2 import winding_pallas_v2_batch
+        from fontrx.engine.raster import RasterEngine
 
         rng = np.random.default_rng(6)
         sorted_segs = synthetic_strokes(rng, 256, y_sorted=True)
         shuffled = sorted_segs[rng.permutation(len(sorted_segs))]
         size = 256
         scale = np.float32(size / UPEM)
+        eng = RasterEngine()
 
         def run(s):
-            return np.asarray(winding_pallas_v2_batch(
-                jnp.asarray(s)[None],
-                jnp.zeros(1, jnp.int32),
-                jnp.asarray(np.full(1, size - 1, np.int32)),
-                jnp.float32(scale),
-                height=256, width=256, exact=True, guard=True,
-                interpret=True,
-            ))[0]
+            return np.asarray(eng.winding_batch(
+                s[None], np.zeros(1, np.int32),
+                np.full(1, size - 1, np.int32), scale,
+                height=size, width=size))[0]
 
         np.testing.assert_array_equal(run(sorted_segs), run(shuffled))
 
 
-class TestBandedAtlas:
-    """Row-banded strip packing (128/tile glyphs per kernel strip with
-    per-band anchors + owner-masked segments) must be bit-identical to
-    the per-glyph kernel."""
+class TestPackOrder:
+    """Pack-time segment order is free: x-sorted and y-sorted packs of
+    the same glyphs raster identically."""
 
     @pytest.mark.parametrize("tile,chars", [(64, "AgWo8@e!"), (32, "Hi,fj")])
     def test_matches_per_glyph(self, dejavu, tile, chars):
@@ -427,38 +529,40 @@ class TestBandedAtlas:
         from fontrx.pack.segments import pack_glyphs
 
         glyphs = [dejavu.get_glyph(c)[0] for c in chars]
-        eng = RasterEngine(backend="interpret")
+        eng = RasterEngine()
         ref, ref_grids = eng.winding_packed(
             pack_glyphs(glyphs), tile, 2048, tile
         )
-        banded, grids = eng.winding_packed_banded(glyphs, tile, 2048, tile)
-        assert banded.shape == (len(glyphs), tile, tile)
+        xs, grids = eng.winding_packed(
+            pack_glyphs(glyphs, sort="x"), tile, 2048, tile)
+        assert xs.shape == (len(glyphs), tile, tile)
         for i in range(len(glyphs)):
             assert (grids[i].min_x, grids[i].max_y) == (
                 ref_grids[i].min_x, ref_grids[i].max_y)
             np.testing.assert_array_equal(
-                np.asarray(banded[i]), np.asarray(ref[i]),
+                np.asarray(xs[i]), np.asarray(ref[i]),
                 err_msg=f"glyph {chars[i]}",
             )
 
-    def test_jnp_backend_falls_back(self, dejavu):
+    def test_xsorted_pack_matches_default(self, dejavu):
         from fontrx.engine.raster import RasterEngine
+        from fontrx.pack.segments import pack_glyphs
 
         glyphs = [dejavu.get_glyph(c)[0] for c in "AB"]
-        eng = RasterEngine(backend="jnp")
-        out, grids = eng.winding_packed_banded(glyphs, 64, 2048, 64)
-        assert np.asarray(out).shape[1:] == (64, 64)
+        eng = RasterEngine()
+        a, _ = eng.winding_packed(pack_glyphs(glyphs, sort="x"), 64, 2048, 64)
+        b, _ = eng.winding_packed(pack_glyphs(glyphs), 64, 2048, 64)
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
 class TestShardedSdfLoopBlinn:
-    """Glyph-axis sharding for the SDF and triangle-fill atlas kernels
+    """Glyph-axis sharding for the SDF and triangle-fill atlases
     (`engine/sharding.py::sdf_sharded/loopblinn_sharded`) — each shard
-    must equal the unsharded kernel's slice on the virtual 8-device
-    mesh, through the REAL pod composition (shard_map + Pallas in
-    interpret mode)."""
+    must equal the unsharded computation's slice on the virtual
+    8-device mesh."""
 
-    @pytest.mark.parametrize("use_pallas", [False, True])
-    def test_sdf_sharded_matches_unsharded(self, dejavu, use_pallas):
+    @pytest.mark.parametrize("wide", [False, True])
+    def test_sdf_sharded_matches_unsharded(self, dejavu, wide):
         import jax
         import jax.numpy as jnp
 
@@ -470,9 +574,10 @@ class TestShardedSdfLoopBlinn:
 
         if len(jax.devices()) < 8:
             pytest.skip("needs 8 virtual devices")
+        size = 48 if wide else 32
         batch = pack_charset(dejavu, "ABCDEFGH", pad_batch_to=8)
         grids = [
-            RasterGrid.fixed_tile(tuple(b), 32, 2048, 32)
+            RasterGrid.fixed_tile(tuple(b), size, 2048, size)
             for b in batch.boxes
         ]
         mesh = make_mesh()
@@ -484,20 +589,16 @@ class TestShardedSdfLoopBlinn:
         seg, mx, my = shard_batch(mesh, *args)
         out = sdf_sharded(
             seg, mx, my, jnp.float32(grids[0].scale),
-            height=32, width=32, mesh=mesh, use_pallas=use_pallas,
-            interpret=use_pallas, flat=use_pallas,
+            height=size, width=size, mesh=mesh,
         )
         assert len(out.sharding.device_set) == 8
-        ref = np.clip(
-            np.asarray(sdf_batch(
-                *args, jnp.float32(grids[0].scale), height=32, width=32
-            )), -8.0, 8.0,
-        )
-        got = np.clip(np.asarray(out), -8.0, 8.0)
-        assert np.abs(got - ref).max() < 8.0 / 127
+        ref = np.asarray(sdf_batch(
+            *args, jnp.float32(grids[0].scale), height=size, width=size
+        ))
+        np.testing.assert_array_equal(np.asarray(out), ref)
 
-    @pytest.mark.parametrize("use_pallas", [False, True])
-    def test_loopblinn_sharded_matches_unsharded(self, dejavu, use_pallas):
+    @pytest.mark.parametrize("curvy", [False, True])
+    def test_loopblinn_sharded_matches_unsharded(self, dejavu, curvy):
         import jax
         import jax.numpy as jnp
 
@@ -511,7 +612,7 @@ class TestShardedSdfLoopBlinn:
 
         if len(jax.devices()) < 8:
             pytest.skip("needs 8 virtual devices")
-        chars = "ABCDEFGH"
+        chars = "gjQ@&%os" if curvy else "ABCDEFGH"
         tgs = [
             TriangulatedGlyph.from_glyph(dejavu.get_glyph(c)[0])
             for c in chars
@@ -541,8 +642,7 @@ class TestShardedSdfLoopBlinn:
         )
         out = loopblinn_sharded(
             *args, jnp.float32(grids[0].scale),
-            height=128, width=128, mesh=mesh, use_pallas=use_pallas,
-            interpret=use_pallas,
+            height=128, width=128, mesh=mesh,
         )
         assert len(out.sharding.device_set) == 8
         ref = np.asarray(loopblinn_batch(
@@ -551,451 +651,114 @@ class TestShardedSdfLoopBlinn:
         np.testing.assert_array_equal(np.asarray(out), ref)
 
 
-class TestDeferredCarryPageKernel:
-    def test_matches_v2_bitexact_wide_page(self, rng):
-        """The deferred-carry page kernel (x-hull tile windows +
-        bucketed carries) vs the v2 carry sweep on a 2048px-wide
-        strip: bit-identical (winding sums commute under the carry
-        regrouping)."""
+def _soup_page(rng, n=300, width=2048, height=128):
+    """Random page-space quadratics over a wide strip (pixel units)."""
+    p0 = rng.uniform(0, [width, height], (n, 2))
+    p1 = p0 + rng.uniform(-60, 60, (n, 2))
+    p2 = p0 + rng.uniform(-60, 60, (n, 2))
+    return np.stack([p0, p1, p2], 1).astype(np.float32)[None]
+
+
+class TestWidePage:
+    """Pages wider and taller than one band: the page binning (instance
+    runs per band) and the route reproduce the unculled raster."""
+
+    @pytest.mark.parametrize("offset", [(0.0, 0.0), (0.25, -0.25)])
+    def test_binned_matches_unculled_wide_page(self, rng, offset):
         import jax.numpy as jnp
 
-        from fontrx.kernels.winding_page import winding_page_batch
-        from fontrx.kernels.winding_pallas_v2 import (
-            winding_pallas_v2_batch,
+        from fontrx.kernels.winding import (
+            bin_glyph_rows,
+            full_rows,
+            winding_bins_xla,
         )
 
-        n = 300
-        p0 = rng.uniform(0, [2048, 128], (n, 2))
-        p1 = p0 + rng.uniform(-60, 60, (n, 2))
-        p2 = p0 + rng.uniform(-60, 60, (n, 2))
-        seg = np.stack([p0, p1, p2], 1).astype(np.float32)[None]
-        mx = jnp.zeros(1, jnp.int32)
-        my = jnp.full(1, 127, jnp.int32)
-        ref = winding_pallas_v2_batch(
-            jnp.asarray(seg), mx, my, jnp.float32(1.0),
-            height=128, width=2048, exact=False, guard=True,
-            seg_chunk=16, interpret=True,
-        )
-        out = winding_page_batch(
-            jnp.asarray(seg), mx, my, jnp.float32(1.0),
-            height=128, width=2048, exact=False, seg_chunk=32,
-            interpret=True,
-        )
-        np.testing.assert_array_equal(np.asarray(out), np.asarray(ref))
-        assert int((np.asarray(ref) != 0).sum()) > 1000
+        seg = _soup_page(rng)
+        anchors = (jnp.zeros(1, jnp.int32), jnp.full(1, 127, jnp.int32),
+                   jnp.float32(1.0), jnp.asarray(offset, jnp.float32))
+        out = []
+        for bins in (bin_glyph_rows(seg, np.array([127]), 1.0, 128),
+                     full_rows(jnp.asarray(seg), 128)):
+            out.append(np.asarray(winding_bins_xla(
+                bins.soa, bins.start, bins.count, *anchors,
+                n_bands=bins.n_bands, cap=bins.cap, width=2048)))
+        np.testing.assert_array_equal(out[0], out[1])
+        assert int((out[0] != 0).sum()) > 1000
 
-    def test_direct_page_step_uses_deferred_kernel_wide(self, dejavu):
-        """The page pipeline routes >=2048px-wide pages through the
-        deferred kernel; narrow pages keep the banded v2 path — both
-        produce identical fills on the same content."""
+    def test_render_direct_wide_page(self, dejavu):
+        """A 2048-px page renders with ink, equal to the unculled
+        raster of the same page-space segments."""
+        import jax.numpy as jnp
+
+        from fontrx.engine.raster import RasterEngine
+        from fontrx.kernels.winding import bucket
+        from fontrx.scene.layout import layout_text
+        from fontrx.scene.page import PageRenderer, _direct_page_step
+        from fontrx.scene.transform import ViewTransform
+
+        layout = layout_text(dejavu, "Wide page check")
+        view = ViewTransform.init(dejavu.info.units_per_em, 2048, 128)
+        pr = PageRenderer(dejavu, layout, 2048, 128, RasterEngine())
+        page = np.asarray(pr.render_direct(view))
+        assert page.shape == (128, 2048)
+        assert int((page != 0).sum()) > 100
+        stream, idx, xs, s_px, _, iss, _ = pr._frame(view)
+        n = int(iss[-1])
+        full = np.asarray(_direct_page_step(
+            stream, idx, jnp.asarray(xs), s_px, jnp.zeros(8, jnp.int32),
+            jnp.full(8, n, jnp.int32), np.int32(127),
+            jnp.zeros((1, 2), jnp.float32), n_bands=8,
+            cap=bucket(n, 256), page_w=2048, out_h=128))
+        np.testing.assert_array_equal(page, full)
+
+    def test_page_segments_feed_the_oracle(self, dejavu):
+        """``PageRenderer.page_segments`` are the segments the page
+        rasters: the oracle over them reproduces the page."""
         from fontrx.engine.raster import RasterEngine
         from fontrx.scene.layout import layout_text
         from fontrx.scene.page import PageRenderer
         from fontrx.scene.transform import ViewTransform
 
-        layout = layout_text(dejavu, "Wide page check")
-        wide = PageRenderer(
-            dejavu, layout, 2048, 128,
-            RasterEngine(backend="interpret"))
-        view = ViewTransform.init(
-            dejavu.info.units_per_em, 2048, 128)
-        page = np.asarray(wide.render_direct(view))
-        assert page.shape == (128, 2048)
-        assert int((page != 0).sum()) > 100
+        layout = layout_text(dejavu, "Oracle page\nsecond line")
+        w, h = 320, 160
+        pr = PageRenderer(dejavu, layout, w, h, RasterEngine())
+        view = ViewTransform.init(dejavu.info.units_per_em, w, h).zoomed(
+            -4.0, (-1.0, 1.0))
+        page = np.asarray(pr.render_direct(view))
+        segs = pr.page_segments(view)
+        xs = np.arange(w, dtype=np.float32)
+        ys = (h - 1 - np.arange(h)).astype(np.float32)
+        wo = oracle.winding_at(segs, xs[None, :], ys[:, None])
+        np.testing.assert_array_equal(page != 0, wo != 0)
+        assert page.any()
 
-    def test_msaa_fused_pair_matches_single_sample(self, rng):
-        """The fused x-pair MSAA kernel: each output plane is
-        bit-identical to winding_page_batch at (ox_s, oy) — phase A is
-        shared across the pair, classification/details per sample."""
-        import jax.numpy as jnp
-
-        from fontrx.kernels.coverage import sample_offsets
-        from fontrx.kernels.winding_page import (
-            winding_page_batch,
-            winding_page_msaa_batch,
-        )
-
-        n = 300
-        p0 = rng.uniform(0, [2048, 128], (n, 2))
-        p1 = p0 + rng.uniform(-60, 60, (n, 2))
-        p2 = p0 + rng.uniform(-60, 60, (n, 2))
-        seg = np.stack([p0, p1, p2], 1).astype(np.float32)[None]
-        mx = jnp.zeros(1, jnp.int32)
-        my = jnp.full(1, 127, jnp.int32)
-        offs = sample_offsets(2)
-        for oy in sorted(set(float(o[1]) for o in offs)):
-            oxs = tuple(sorted(
-                float(o[0]) for o in offs if float(o[1]) == oy))
-            fused = winding_page_msaa_batch(
-                jnp.asarray(seg), mx, my, jnp.float32(1.0),
-                height=128, width=2048, exact=True, seg_chunk=32,
-                sample_oy=oy, sample_oxs=oxs, interpret=True,
-            )
-            for s, ox in enumerate(oxs):
-                ref = winding_page_batch(
-                    jnp.asarray(seg), mx, my, jnp.float32(1.0),
-                    height=128, width=2048, exact=True, seg_chunk=32,
-                    sample_offset=(ox, oy), dynamic_tiles=True,
-                    interpret=True,
-                )
-                np.testing.assert_array_equal(
-                    np.asarray(fused[0, s]), np.asarray(ref[0]))
-            assert int((np.asarray(fused) != 0).sum()) > 1000
-
-    def test_render_direct_msaa_fused_equals_four_pass(self, dejavu):
-        """Wide-page MSAA routes through the fused x-pair kernel; the
-        result equals the 4-pass single-sample sum exactly."""
+    def test_render_direct_msaa_equals_four_pass(self, dejavu):
+        """MSAA pages sum four single-offset fills exactly."""
         import jax.numpy as jnp
 
         from fontrx.engine.raster import RasterEngine
         from fontrx.kernels.coverage import sample_offsets
+        from fontrx.kernels.winding import bucket
         from fontrx.scene.layout import layout_text
         from fontrx.scene.page import PageRenderer, _direct_page_step
         from fontrx.scene.transform import ViewTransform
 
         layout = layout_text(dejavu, "MSAA page pair")
-        pr = PageRenderer(
-            dejavu, layout, 1024, 128, RasterEngine(backend="interpret"))
+        pr = PageRenderer(dejavu, layout, 1024, 128, RasterEngine())
         view = ViewTransform.init(dejavu.info.units_per_em, 1024, 128)
         page = np.asarray(pr.render_direct(view, msaa=True))
         assert page.shape == (128, 1024)
         assert len(np.unique(page)) > 2  # actually antialiased
 
-        slots, _ = layout.instance_arrays()
-        flat_segments, seg_inst_idx = pr._compact_instances(slots)
-        em = layout.instance_arrays()[1].astype(np.float64)
-        ndc_x = em[:, 0] * view.scale[0] + view.offset[0]
-        ndc_y = (em[:, 1] * view.scale[1] + view.offset[1]) \
-            * view.aspect_ratio
-        xs = np.empty((len(slots), 2), np.float32)
-        xs[:, 0] = (ndc_x + 1.0) / 2.0 * 1024
-        xs[:, 1] = (ndc_y + 1.0) / 2.0 * 128
-        s_px = np.float32(view.scale[0] * 512.0)
+        stream, idx, xs, s_px, base, iss, ext = pr._frame(view)
+        start, count = pr._band_ranges(base, iss, ext, float(s_px), 127, 8)
         acc = None
-        for ox, oy in sample_offsets(2):
+        for off in sample_offsets(2):
             f = np.asarray(_direct_page_step(
-                flat_segments, seg_inst_idx, jnp.asarray(xs), s_px,
-                page_h=128, page_w=1024, interpret=True,
-                sample_offset=(float(ox), float(oy)),
+                stream, idx, jnp.asarray(xs), s_px, jnp.asarray(start),
+                jnp.asarray(count), np.int32(127), jnp.asarray(off[None]),
+                n_bands=8, cap=bucket(int(count.max()), 256), page_w=1024,
+                out_h=128,
             )).astype(np.uint16)
             acc = f if acc is None else acc + f
         np.testing.assert_array_equal(page, (acc // 4).astype(np.uint8))
-
-
-class TestScalarSegmentSdf:
-    def test_matches_chunk_kernel_within_tolerance(self, rng):
-        """The scalar-segment flat SDF kernel (2-D pixel tiles, SMEM
-        segment scalars) vs the 3-D chunk kernel: same float program
-        per (segment, pixel) — agreement far inside the 0.063 px u8
-        quantization step (tiny fusion-order noise only)."""
-        import jax.numpy as jnp
-
-        from fontrx.kernels.sdf_pallas import sdf_pallas_batch
-
-        n = 96
-        p0 = rng.uniform(100, 1900, (n, 2))
-        p1 = p0 + rng.uniform(-80, 80, (n, 2))
-        p2 = p0 + rng.uniform(-80, 80, (n, 2))
-        seg = np.stack([p0, p1, p2], 1).astype(np.float32)[None]
-        mx = jnp.zeros(1, jnp.int32)
-        my = jnp.full(1, 31, jnp.int32)
-        scale = jnp.float32(32.0 / 2048.0)
-        a = sdf_pallas_batch(
-            jnp.asarray(seg), mx, my, scale, height=32, width=32,
-            flat=True, interpret=True)
-        b = sdf_pallas_batch(
-            jnp.asarray(seg), mx, my, scale, height=32, width=32,
-            flat=True, scalar_segments=True, interpret=True)
-        assert float(jnp.max(jnp.abs(a - b))) < 1e-4
-
-
-class TestTiledSdf:
-    """2-D-tiled band-culled SDF kernel (round 4): pack-time per-tile
-    segment lists (hull-box distance vs the spread band), sublane-group
-    register layout, dynamic per-(glyph, register-tile) chunk counts.
-    Exactness argument: kept (segment, pixel) pairs run the identical
-    float program; a dropped pair's distance provably exceeds
-    ``spread`` (distance-to-curve >= distance-to-hull-box > spread +
-    guard), so post-clamp output is BIT-IDENTICAL to the flat kernel —
-    including under the min_x jitter covered by ``x_slack_px``."""
-
-    @pytest.mark.parametrize("size,th,tw,sort_tiles", [
-        (32, 8, 16, False), (32, 32, 32, False), (64, 8, 16, False),
-        (64, 16, 16, False), (64, 32, 32, False),
-        (64, 8, 16, True), (64, 4, 32, True), (32, 8, 16, True),
-    ])
-    def test_bitexact_vs_flat_kernel(self, rng, size, th, tw,
-                                     sort_tiles):
-        import jax.numpy as jnp
-
-        from fontrx.kernels.sdf_pallas import (
-            pack_sdf_tiles,
-            sdf_pallas_batch,
-            sdf_pallas_tiled_batch,
-        )
-
-        b, n = 3, 96
-        p0 = rng.uniform(100, 1900, (b, n, 2))
-        p1 = p0 + rng.uniform(-80, 80, (b, n, 2))
-        p2 = p0 + rng.uniform(-80, 80, (b, n, 2))
-        seg = np.stack([p0, p1, p2], 2).astype(np.float32)
-        # a couple of all-zero padding rows (dead-slot handling)
-        seg[:, -5:] = 0.0
-        mx = np.full(b, 3, np.int32)  # jittered anchor
-        my = np.full(b, size - 1, np.int32)
-        scale = np.float32(size / 2048.0)
-        ref = sdf_pallas_batch(
-            jnp.asarray(seg), jnp.asarray(mx), jnp.asarray(my),
-            jnp.float32(scale), height=size, width=size, flat=True,
-            interpret=True)
-        stream, cnts, tids, cap = pack_sdf_tiles(
-            seg, np.zeros(b, np.int32), my, scale, size, size,
-            tile_h=th, tile_w=tw, x_slack_px=4.0,
-            sort_tiles=sort_tiles)
-        out = sdf_pallas_tiled_batch(
-            jnp.asarray(seg), jnp.asarray(stream), cnts, tids,
-            jnp.asarray(mx), jnp.asarray(my), jnp.float32(scale),
-            height=size, width=size, cap=cap, tile_h=th, tile_w=tw,
-            interpret=True)
-        np.testing.assert_array_equal(np.asarray(out), np.asarray(ref))
-
-    @pytest.mark.parametrize("size,chunk,unroll", [
-        (64, 16, 1), (64, 16, 2), (64, 8, 1), (32, 16, 1),
-    ])
-    def test_seg_major_bitexact(self, rng, size, chunk, unroll):
-        """Segment-major stream (round 5): the iteration block orders
-        rows j*n_g + g so params assemble as static lane slices with
-        zero per-group selects — output must stay bit-identical to
-        the flat kernel (and hence to the group-major layout)."""
-        import jax.numpy as jnp
-
-        from fontrx.kernels.sdf_pallas import (
-            pack_sdf_tiles,
-            sdf_pallas_batch,
-            sdf_pallas_tiled_batch,
-        )
-
-        b, n = 3, 96
-        p0 = rng.uniform(100, 1900, (b, n, 2))
-        p1 = p0 + rng.uniform(-80, 80, (b, n, 2))
-        p2 = p0 + rng.uniform(-80, 80, (b, n, 2))
-        seg = np.stack([p0, p1, p2], 2).astype(np.float32)
-        seg[:, -5:] = 0.0
-        mx = np.full(b, 3, np.int32)
-        my = np.full(b, size - 1, np.int32)
-        scale = np.float32(size / 2048.0)
-        ref = sdf_pallas_batch(
-            jnp.asarray(seg), jnp.asarray(mx), jnp.asarray(my),
-            jnp.float32(scale), height=size, width=size, flat=True,
-            interpret=True)
-        stream, cnts, tids, cap = pack_sdf_tiles(
-            seg, np.zeros(b, np.int32), my, scale, size, size,
-            tile_h=8, tile_w=16, seg_chunk=chunk, x_slack_px=4.0,
-            sort_tiles=True, seg_major=True)
-        out = sdf_pallas_tiled_batch(
-            jnp.asarray(seg), jnp.asarray(stream), cnts, tids,
-            jnp.asarray(mx), jnp.asarray(my), jnp.float32(scale),
-            height=size, width=size, cap=cap, tile_h=8, tile_w=16,
-            seg_chunk=chunk, seg_major=True, unroll=unroll,
-            interpret=True)
-        np.testing.assert_array_equal(np.asarray(out), np.asarray(ref))
-
-
-class TestDenseWindows:
-    """Window-packed dense kernel (`pack_dense_windows` +
-    `winding_dense_win_batch`): per-chunk ROW culling via 16/32-row
-    windows.  Exactness argument: crossings only exist on rows inside
-    a segment's control hull (+-1 guard), windows partition the rows,
-    and winding sums commute — every raster must be bit-identical to
-    the plain dense kernel and the oracle."""
-
-    def _run(self, size, win_rows, groups, seg_chunk, n=3, segn=280,
-             seed=11):
-        import jax.numpy as jnp
-
-        from benchmarks.cjk import UPEM, synthetic_strokes
-        from fontrx.kernels.winding_dense import (
-            pack_dense_windows,
-            winding_dense_batch,
-            winding_dense_win_batch,
-        )
-
-        rng = np.random.default_rng(seed)
-        segs = np.stack([synthetic_strokes(rng, segn)
-                         for _ in range(n)])
-        scale = np.float32(size / UPEM)
-        min_x = np.zeros(n, np.int32)
-        max_y = np.full(n, size - 1, np.int32)
-        ref = np.asarray(winding_dense_batch(
-            jnp.asarray(segs), jnp.asarray(min_x), jnp.asarray(max_y),
-            jnp.float32(scale), height=size, width=size, exact=True,
-            interpret=True))
-        win, nw, cap = pack_dense_windows(
-            segs, min_x, max_y, float(scale), size,
-            win_rows=win_rows, seg_chunk=seg_chunk, groups=groups)
-        out = np.asarray(winding_dense_win_batch(
-            jnp.asarray(win), jnp.asarray(min_x), jnp.asarray(max_y),
-            jnp.float32(scale), height=size, width=size, n_windows=nw,
-            cap=cap, exact=True, interpret=True, win_rows=win_rows,
-            groups=groups, seg_chunk=seg_chunk))
-        np.testing.assert_array_equal(out, ref)
-        return segs, scale, max_y, out
-
-    @pytest.mark.parametrize("size,win_rows,groups,seg_chunk", [
-        (64, 16, 8, 16), (64, 16, 8, 8), (64, 32, 4, 32),
-        (32, 16, 8, 16), (128, 16, 8, 16),
-    ])
-    def test_bitexact_vs_dense_and_oracle(self, size, win_rows,
-                                          groups, seg_chunk):
-        from fontrx.kernels import oracle
-
-        segs, scale, max_y, out = self._run(
-            size, win_rows, groups, seg_chunk)
-        for i in range(len(segs)):
-            xs = np.arange(size).astype(np.float32) / scale
-            ys = (max_y[i] - np.arange(size)).astype(np.float32) / scale
-            w = oracle.winding_at(segs[i], xs[None, :], ys[:, None])
-            np.testing.assert_array_equal(
-                out[i, :size, :size], w, err_msg=f"glyph {i}")
-
-    def test_sample_offset_within_margin(self):
-        """One packing serves every MSAA sample offset in [-1, 1]
-        (the pack's sample_margin): offset rasters stay bit-identical
-        to the plain dense kernel at the same offset."""
-        import jax.numpy as jnp
-
-        from benchmarks.cjk import UPEM, synthetic_strokes
-        from fontrx.kernels.winding_dense import (
-            pack_dense_windows,
-            winding_dense_batch,
-            winding_dense_win_batch,
-        )
-
-        rng = np.random.default_rng(12)
-        segs = np.stack([synthetic_strokes(rng, 200) for _ in range(2)])
-        size = 64
-        scale = np.float32(size / UPEM)
-        min_x = np.zeros(2, np.int32)
-        max_y = np.full(2, size - 1, np.int32)
-        win, nw, cap = pack_dense_windows(
-            segs, min_x, max_y, float(scale), size)
-        for off in ((0.25, 0.75), (-0.5, 0.5), (0.0, -1.0)):
-            ref = np.asarray(winding_dense_batch(
-                jnp.asarray(segs), jnp.asarray(min_x),
-                jnp.asarray(max_y), jnp.float32(scale), height=size,
-                width=size, exact=True, interpret=True,
-                sample_offset=off))
-            out = np.asarray(winding_dense_win_batch(
-                jnp.asarray(win), jnp.asarray(min_x),
-                jnp.asarray(max_y), jnp.float32(scale), height=size,
-                width=size, n_windows=nw, cap=cap, exact=True,
-                interpret=True, sample_offset=off))
-            np.testing.assert_array_equal(out, ref, err_msg=str(off))
-
-    def test_engine_windows_route(self):
-        """`RasterEngine.pack_windows` + `winding_batch(windows=)` —
-        the shipped atlas routing — matches the plain engine path
-        bit-for-bit at the shipped `dense_win_tuning` knobs."""
-        import jax.numpy as jnp
-
-        from benchmarks.cjk import UPEM, synthetic_strokes
-        from fontrx.engine.raster import RasterEngine
-
-        rng = np.random.default_rng(14)
-        segs = np.stack([synthetic_strokes(rng, 280) for _ in range(3)])
-        engine = RasterEngine(exact=True, backend="interpret")
-        min_x = np.zeros(3, np.int32)
-        for size in (64, 32):
-            scale = float(size / UPEM)
-            max_y = np.full(3, size - 1, np.int32)
-            wins = engine.pack_windows(
-                segs, min_x, max_y, scale, height=size)
-            assert wins is not None
-            ref = np.asarray(engine.winding_batch(
-                jnp.asarray(segs), min_x, max_y, scale,
-                height=size, width=size))
-            out = np.asarray(engine.winding_batch(
-                jnp.asarray(segs), min_x, max_y, scale,
-                height=size, width=size, windows=wins))
-            np.testing.assert_array_equal(out, ref)
-        # non-Pallas backends decline the pack
-        assert RasterEngine(backend="jnp").pack_windows(
-            segs, min_x, np.full(3, 63, np.int32), 64 / UPEM,
-            height=64) is None
-
-    def test_pack_duplication_is_bounded(self):
-        """The window assignment duplicates a segment only into
-        windows its hull can touch — for stroke-like dense content
-        the duplication factor stays small."""
-        from benchmarks.cjk import UPEM, synthetic_strokes
-        from fontrx.kernels.winding_dense import pack_dense_windows
-
-        rng = np.random.default_rng(13)
-        segs = np.stack([synthetic_strokes(rng, 288) for _ in range(4)])
-        win, nw, cap = pack_dense_windows(
-            segs, np.zeros(4, np.int32), np.full(4, 63, np.int32),
-            64.0 / UPEM, 64)
-        live = int((~(win == 0).all(axis=(2, 3))).sum())
-        total = int((~(segs == 0).all(axis=(2, 3))).sum())
-        assert live / total < 3.0  # duplication factor sanity bound
-
-
-class TestSdfEngineDispatch:
-    """RasterEngine.pack_sdf/sdf_batch routing: the dense regime
-    (capacity >= 128, size >= 64) takes the tiled band-culled kernel,
-    bit-identical to flat mode; 32px and sparse batches keep flat."""
-
-    def _batch(self, rng, b=2, n=160):
-        p0 = rng.uniform(100, 1900, (b, n, 2))
-        p1 = p0 + rng.uniform(-80, 80, (b, n, 2))
-        p2 = p0 + rng.uniform(-80, 80, (b, n, 2))
-        return np.stack([p0, p1, p2], 2).astype(np.float32)
-
-    def test_dense_routes_tiled_and_matches_flat(self, rng):
-        from fontrx.engine.raster import RasterEngine
-
-        seg = self._batch(rng)
-        b = len(seg)
-        mx = np.zeros(b, np.int32)
-        my = np.full(b, 63, np.int32)
-        scale = np.float32(64 / 2048)
-        eng = RasterEngine(backend="interpret")
-        pack = eng.pack_sdf(seg, mx, my, scale, height=64, width=64)
-        assert pack is not None
-        tiled = np.asarray(eng.sdf_batch(
-            seg, mx, my, scale, height=64, width=64, pack=pack))
-        flat = np.asarray(eng.sdf_batch(
-            seg, mx, my, scale, height=64, width=64))
-        np.testing.assert_array_equal(tiled, flat)
-
-    def test_sparse_and_small_keep_flat(self, rng):
-        from fontrx.engine.raster import RasterEngine
-
-        seg = self._batch(rng)
-        mx = np.zeros(2, np.int32)
-        my = np.full(2, 63, np.int32)
-        eng = RasterEngine(backend="interpret")
-        assert eng.pack_sdf(seg, mx, my, np.float32(32 / 2048),
-                            height=32, width=32) is None
-        assert eng.pack_sdf(seg[:, :100], mx, my,
-                            np.float32(64 / 2048),
-                            height=64, width=64) is None
-
-    def test_jnp_backend_falls_through(self, rng):
-        from fontrx.engine.raster import RasterEngine
-        from fontrx.kernels.sdf import sdf_batch as sdf_jnp
-
-        import jax.numpy as jnp
-
-        seg = self._batch(rng)
-        mx = np.zeros(2, np.int32)
-        my = np.full(2, 63, np.int32)
-        scale = np.float32(64 / 2048)
-        eng = RasterEngine(backend="jnp")
-        assert eng.pack_sdf(seg, mx, my, scale,
-                            height=64, width=64) is None
-        out = eng.sdf_batch(seg, mx, my, scale, height=64, width=64)
-        ref = sdf_jnp(jnp.asarray(seg), jnp.asarray(mx),
-                      jnp.asarray(my), jnp.float32(scale),
-                      height=64, width=64)
-        np.testing.assert_array_equal(np.asarray(out), np.asarray(ref))

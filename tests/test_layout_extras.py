@@ -92,7 +92,7 @@ class TestDecorations:
         box = lt.batch.boxes[bar_slot]
         grid = RasterGrid.for_glyph_box(
             tuple(int(v) for v in box), 64, dj.info.units_per_em)
-        w = RasterEngine(backend="jnp").winding_batch(
+        w = RasterEngine().winding_batch(
             seg, np.array([grid.min_x], np.int32),
             np.array([grid.max_y], np.int32), grid.scale,
             height=grid.height, width=grid.width)

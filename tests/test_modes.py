@@ -18,7 +18,7 @@ class TestCoverage:
         import jax.numpy as jnp
 
         from fontrx.kernels.coverage import coverage_batch
-        from fontrx.kernels.winding_jnp import winding_batch
+        from fontrx.kernels.winding import winding_batch
         from fontrx.kernels.grid import RasterGrid
         from fontrx.pack.segments import glyph_segments
 
@@ -63,13 +63,15 @@ class TestCoverage:
         # values are k^2-quantized fractions
         assert np.all((cov * 16) == np.round(cov * 16))
 
-    def test_multipass_v2_matches_jnp(self, dejavu):
-        """The tile-scale MSAA path (k^2 offset passes of the v2 kernel,
-        config 2's production strategy) is bit-identical to the jnp
-        multipass reference."""
+    @pytest.mark.parametrize("samples", [2, 3])
+    def test_engine_multipass_matches_reference(self, dejavu, samples):
+        """RasterEngine.coverage_batch — k^2 traced-offset passes of the
+        binned winding route over one binning (config 2's strategy) — is
+        bit-identical to the traceable unculled multipass reference."""
         import jax.numpy as jnp
 
-        from fontrx.kernels.coverage import coverage_batch, coverage_batch_v2
+        from fontrx.engine.raster import RasterEngine
+        from fontrx.kernels.coverage import coverage_batch
         from fontrx.kernels.grid import RasterGrid
         from fontrx.pack.segments import pack_glyphs
 
@@ -77,25 +79,20 @@ class TestCoverage:
         batch = pack_glyphs(glyphs)
         grids = [RasterGrid.fixed_tile(tuple(b), 64, 2048, 64)
                  for b in batch.boxes]
-        args = (
-            jnp.asarray(batch.segments),
-            jnp.array([g.min_x for g in grids], jnp.int32),
-            jnp.array([g.max_y for g in grids], jnp.int32),
-            jnp.float32(grids[0].scale),
-        )
-        ref = np.asarray(
-            coverage_batch(*args, height=128, width=128, samples=2)
-        )
-        v2 = np.asarray(
-            coverage_batch_v2(
-                *args, height=128, width=128, samples=2, interpret=True
-            )
-        )
-        np.testing.assert_array_equal(ref, v2)
+        mx = np.array([g.min_x for g in grids], np.int32)
+        my = np.array([g.max_y for g in grids], np.int32)
+        ref = np.asarray(coverage_batch(
+            jnp.asarray(batch.segments), jnp.asarray(mx), jnp.asarray(my),
+            jnp.float32(grids[0].scale), height=64, width=64,
+            samples=samples))
+        out = np.asarray(RasterEngine().coverage_batch(
+            batch.segments, mx, my, grids[0].scale, height=64, width=64,
+            samples=samples))
+        np.testing.assert_array_equal(ref, out)
 
     def test_engine_coverage_interpret_matches_jnp(self, dejavu):
-        """RasterEngine.coverage_batch dispatches the multipass-v2 path
-        (fused=None default) with tile padding/cropping intact."""
+        """Binned and unculled coverage agree on a non-square,
+        non-power-of-two grid (row-band padding cropped)."""
         import jax.numpy as jnp
 
         from fontrx.engine.raster import RasterEngine
@@ -104,29 +101,18 @@ class TestCoverage:
         from fontrx.pack.segments import glyph_segments
 
         g, _ = dejavu.get_glyph("e")
-        seg = jnp.asarray(glyph_segments(g))[None]
-        grid = RasterGrid.fixed_tile(
-            (g.box.x_min, g.box.y_min, g.box.x_max, g.box.y_max), 64, 2048, 64
+        seg = glyph_segments(g)[None]
+        grid = RasterGrid.for_glyph_box(
+            (g.box.x_min, g.box.y_min, g.box.x_max, g.box.y_max), 72, 2048
         )
-        args = (
-            seg,
-            jnp.array([grid.min_x], jnp.int32),
-            jnp.array([grid.max_y], jnp.int32),
-            jnp.float32(grid.scale),
-        )
-        ref = np.asarray(
-            coverage_batch(*args, height=64, width=64, samples=2)
-        )
-        eng = RasterEngine(backend="interpret")
-        out = np.asarray(
-            eng.coverage_batch(*args, height=64, width=64, samples=2)
-        )
+        args = (seg, np.array([grid.min_x], np.int32),
+                np.array([grid.max_y], np.int32), grid.scale)
+        kw = dict(height=grid.height, width=grid.width, samples=2)
+        ref = np.asarray(coverage_batch(
+            *[jnp.asarray(a) for a in args[:3]], jnp.float32(args[3]), **kw))
+        out = np.asarray(RasterEngine().coverage_batch(*args, **kw))
+        assert out.shape == (1, grid.height, grid.width)
         np.testing.assert_array_equal(ref, out)
-        fused = np.asarray(
-            eng.coverage_batch(*args, height=64, width=64, samples=2,
-                               fused=True)
-        )
-        np.testing.assert_array_equal(ref, fused)
 
     def test_coverage_monotone_in_k(self, dejavu):
         """More samples -> coverage converges; mean stays stable."""
@@ -315,7 +301,7 @@ class TestInteractive:
         from fontrx.scene.interactive import InteractiveSession
 
         sess = InteractiveSession(
-            dejavu, "Hi", 256, 192, RasterEngine(backend="jnp")
+            dejavu, "Hi", 256, 192, RasterEngine()
         )
         f0 = sess.frame()
         assert f0.shape == (192, 256)
@@ -345,7 +331,7 @@ class TestTileCache:
         from fontrx.scene.interactive import InteractiveSession
 
         return InteractiveSession(
-            dejavu, "Hello", 256, 192, RasterEngine(backend="jnp"),
+            dejavu, "Hello", 256, 192, RasterEngine(),
             mode="composite", **kw,
         )
 
@@ -378,7 +364,7 @@ class TestTileCache:
         from fontrx.scene.page import GlyphTileCache, PageRenderer
         from fontrx.scene.transform import ViewTransform
 
-        eng = RasterEngine(backend="jnp")
+        eng = RasterEngine()
         layout = layout_text(dejavu, "Wavy")
         view = ViewTransform.init(dejavu.info.units_per_em, 256, 192)
         plain = PageRenderer(dejavu, layout, 256, 192, eng)
@@ -421,7 +407,7 @@ class TestToggles:
         from fontrx.scene.interactive import InteractiveSession
 
         sess = InteractiveSession(
-            dejavu, "Hi", 256, 192, RasterEngine(backend="jnp"), mode=mode
+            dejavu, "Hi", 256, 192, RasterEngine(), mode=mode
         )
         base = sess.frame()
         sess.key("m")
@@ -444,7 +430,7 @@ class TestToggles:
         from fontrx.scene.interactive import InteractiveSession
 
         sess = InteractiveSession(
-            dejavu, "Hi", 256, 192, RasterEngine(backend="jnp"), mode=mode
+            dejavu, "Hi", 256, 192, RasterEngine(), mode=mode
         )
         opaque = sess.display_frame()
         assert opaque.shape == (192, 256, 4)
@@ -557,67 +543,55 @@ class TestCompilationCache:
         assert stats["entries"] >= 1
 
 
-class TestSDFPallas:
-    def test_matches_jnp_sdf(self, dejavu):
+class TestSDFChunking:
+    """The SDF streams segments in chunks under ``fori_loop`` with a
+    running minimum: min commutes, so the chunk size changes no bit."""
+
+    @pytest.mark.parametrize("chars,size", [("Ag", 32), ("W&o", 64)])
+    def test_chunk_size_is_bit_neutral(self, dejavu, monkeypatch, chars,
+                                       size):
         import jax.numpy as jnp
 
+        from fontrx.kernels import sdf
+        from fontrx.kernels.grid import RasterGrid
+        from fontrx.pack.segments import pack_glyphs
+
+        batch = pack_glyphs([dejavu.get_glyph(c)[0] for c in chars])
+        grids = [RasterGrid.fixed_tile(tuple(b), size, 2048, size)
+                 for b in batch.boxes]
+        args = (
+            jnp.asarray(batch.segments),
+            jnp.array([g.min_x for g in grids], jnp.int32),
+            jnp.array([g.max_y for g in grids], jnp.int32),
+            jnp.float32(grids[0].scale),
+        )
+        ref = np.asarray(sdf.sdf_batch(*args, height=size, width=size))
+        monkeypatch.setattr(sdf, "SEG_CHUNK", 5)
+        sdf.sdf_batch.clear_cache()
+        out = np.asarray(sdf.sdf_batch(*args, height=size, width=size))
+        sdf.sdf_batch.clear_cache()
+        np.testing.assert_array_equal(ref, out)
+        assert np.isfinite(out).all()
+
+    def test_engine_sdf_is_plain_sdf(self, dejavu):
+        from fontrx.engine.raster import RasterEngine
         from fontrx.kernels.grid import RasterGrid
         from fontrx.kernels.sdf import sdf_batch
-        from fontrx.kernels.sdf_pallas import sdf_pallas_batch
         from fontrx.pack.segments import pack_glyphs
 
-        glyphs = [dejavu.get_glyph(c)[0] for c in "Ag"]
-        batch = pack_glyphs(glyphs)
-        grids = [RasterGrid.fixed_tile(tuple(b), 32, 2048, 32)
-                 for b in batch.boxes]
-        args = (
-            jnp.asarray(batch.segments),
-            jnp.array([g.min_x for g in grids], jnp.int32),
-            jnp.array([g.max_y for g in grids], jnp.int32),
-            jnp.float32(grids[0].scale),
-        )
-        ref = np.clip(np.asarray(sdf_batch(*args, height=32, width=32)),
-                      -8.0, 8.0)
-        fast = np.asarray(
-            sdf_pallas_batch(*args, height=32, width=128, interpret=True)
-        )[:, :, :32]
-        assert np.abs(ref - fast).max() < 8.0 / 127  # sub-quantization
-        # flat mode (full-lane pixel flattening for small tiles) is
-        # bit-identical to the tiled kernel: same float program per
-        # (segment, pixel), only the pixel->lane mapping differs
-        flat = np.asarray(
-            sdf_pallas_batch(
-                *args, height=32, width=32, interpret=True, flat=True
-            )
-        )
-        np.testing.assert_array_equal(flat, fast)
-
-    def test_flat_mode_64px(self, dejavu):
         import jax.numpy as jnp
 
-        from fontrx.kernels.grid import RasterGrid
-        from fontrx.kernels.sdf_pallas import sdf_pallas_batch
-        from fontrx.pack.segments import pack_glyphs
-
-        glyphs = [dejavu.get_glyph(c)[0] for c in "W&o"]
-        batch = pack_glyphs(glyphs)
-        grids = [RasterGrid.fixed_tile(tuple(b), 64, 2048, 64)
+        batch = pack_glyphs([dejavu.get_glyph(c)[0] for c in "Qx"])
+        grids = [RasterGrid.fixed_tile(tuple(b), 32, 2048, 32)
                  for b in batch.boxes]
-        args = (
-            jnp.asarray(batch.segments),
-            jnp.array([g.min_x for g in grids], jnp.int32),
-            jnp.array([g.max_y for g in grids], jnp.int32),
-            jnp.float32(grids[0].scale),
-        )
-        tiled = np.asarray(
-            sdf_pallas_batch(*args, height=64, width=128, interpret=True)
-        )[:, :, :64]
-        flat = np.asarray(
-            sdf_pallas_batch(
-                *args, height=64, width=64, interpret=True, flat=True
-            )
-        )
-        np.testing.assert_array_equal(flat, tiled)
+        mx = np.array([g.min_x for g in grids], np.int32)
+        my = np.array([g.max_y for g in grids], np.int32)
+        out = RasterEngine().sdf_batch(
+            batch.segments, mx, my, grids[0].scale, height=32, width=32)
+        ref = sdf_batch(jnp.asarray(batch.segments), jnp.asarray(mx),
+                        jnp.asarray(my), jnp.float32(grids[0].scale),
+                        height=32, width=32)
+        np.testing.assert_array_equal(np.asarray(out), np.asarray(ref))
 
 
 class TestCLIHelp:
@@ -735,12 +709,13 @@ class TestWordWrap:
         assert pa == pb
 
 
-class TestLoopBlinnPallas:
-    """The Pallas triangle-fill kernel (per-(chunk, tile) bbox culling)
-    must produce coverage identical to the jnp kernel — same float
-    program per (triangle, pixel) pair."""
+class TestLoopBlinnFill:
+    """``loopblinn_fill`` (the CLI's triangulation mode) is the batch
+    kernel's single-glyph view — same float program per (triangle,
+    pixel) pair."""
 
-    def test_matches_jnp_coverage(self, dejavu):
+    @pytest.mark.parametrize("ch", list("ABgo&@"))
+    def test_matches_batch_coverage(self, dejavu, ch):
         import jax.numpy as jnp
 
         from fontrx.geometry import TriangulatedGlyph
@@ -748,43 +723,24 @@ class TestLoopBlinnPallas:
         from fontrx.kernels.loopblinn import (
             _pack_triangle_arrays,
             loopblinn_batch,
-            loopblinn_pallas_batch,
+            loopblinn_fill,
             pad_triangles,
         )
 
-        chars = "ABgo&@"
-        tgs = [
-            TriangulatedGlyph.from_glyph(dejavu.get_glyph(c)[0])
-            for c in chars
-        ]
-        cap = max(len(t.triangles) for t in tgs)
-        tris = np.zeros((len(tgs), cap, 3, 4), np.float32)
-        cls = np.full((len(tgs), cap), 3, np.int32)
-        boxes = []
-        for i, (c, tg) in enumerate(zip(chars, tgs)):
-            p, pc = pad_triangles(
-                _pack_triangle_arrays(tg), tg.classes, cap
-            )
-            tris[i] = p
-            cls[i] = pc
-            g, _ = dejavu.get_glyph(c)
-            boxes.append(
-                (g.box.x_min, g.box.y_min, g.box.x_max, g.box.y_max)
-            )
-        grids = [
-            RasterGrid.fixed_tile(b, 128, 2048, 128) for b in boxes
-        ]
-        args = (
-            jnp.asarray(tris), jnp.asarray(cls),
-            jnp.array([g.min_x for g in grids], jnp.int32),
-            jnp.array([g.max_y for g in grids], jnp.int32),
-            jnp.float32(grids[0].scale),
-        )
-        a = np.asarray(loopblinn_batch(*args, height=128, width=128))
-        b = np.asarray(loopblinn_pallas_batch(
-            *args, height=128, width=128, interpret=True
-        ))
-        np.testing.assert_array_equal(a, b)
+        g, _ = dejavu.get_glyph(ch)
+        tg = TriangulatedGlyph.from_glyph(g)
+        grid = RasterGrid.for_glyph_box(
+            (g.box.x_min, g.box.y_min, g.box.x_max, g.box.y_max), 96, 2048)
+        tris, cls = pad_triangles(
+            _pack_triangle_arrays(tg), tg.classes, len(tg.triangles) + 3)
+        a = np.asarray(loopblinn_batch(
+            jnp.asarray(tris)[None], jnp.asarray(cls)[None],
+            jnp.array([grid.min_x], jnp.int32),
+            jnp.array([grid.max_y], jnp.int32), jnp.float32(grid.scale),
+            height=grid.height, width=grid.width))[0]
+        fill = loopblinn_fill(tg, grid)
+        np.testing.assert_array_equal(np.where(a, 255, 0), fill)
+        assert fill.any()
 
 
 class TestTextEditing:
@@ -796,7 +752,7 @@ class TestTextEditing:
         from fontrx.scene.interactive import InteractiveSession
 
         s = InteractiveSession(
-            dejavu, "Hi", 128, 96, RasterEngine(backend="jnp")
+            dejavu, "Hi", 128, 96, RasterEngine()
         )
         f0 = s.frame()
         s.char_input("!")
@@ -818,7 +774,7 @@ class TestTextEditing:
             "-f", "/usr/share/fonts/truetype/dejavu/DejaVuSans.ttf",
         ])
         s = InteractiveSession(
-            dejavu, "ab", 128, 96, RasterEngine(backend="jnp")
+            dejavu, "ab", 128, 96, RasterEngine()
         )
         n = _dispatch(s, cfg, "type", ["cd"], 0)
         assert s.text == "abcd"
@@ -875,10 +831,8 @@ class TestLCDMode:
     def test_channel_semantics(self, dejavu):
         import jax.numpy as jnp
 
-        from fontrx.kernels.coverage import (
-            coverage_batch,
-            lcd_coverage_batch,
-        )
+        from fontrx.engine.raster import RasterEngine
+        from fontrx.kernels.coverage import coverage_batch
         from fontrx.kernels.grid import RasterGrid
         from fontrx.pack.segments import pack_glyphs
 
@@ -893,8 +847,10 @@ class TestLCDMode:
             jnp.array([grid.max_y], jnp.int32),
             jnp.float32(grid.scale),
         )
-        lcd = np.asarray(lcd_coverage_batch(
-            *args, height=48, width=48, samples=2, use_pallas=False
+        lcd = np.asarray(RasterEngine().lcd_coverage_batch(
+            batch.segments, np.array([grid.min_x], np.int32),
+            np.array([grid.max_y], np.int32), grid.scale,
+            height=48, width=48, samples=2,
         ))[0]
         plain = np.asarray(coverage_batch(
             *args, height=48, width=48, samples=2

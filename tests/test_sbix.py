@@ -97,7 +97,7 @@ class TestSbixRender:
 
         tiles, grids = color_glyph_tiles(
             sfont, [sfont.glyph_index("A")], 48,
-            RasterEngine(backend="jnp"))
+            RasterEngine())
         t = np.asarray(tiles[0])
         assert tuple(np.round(t[2, 2, :3]).astype(int)) == (1, 0, 0)
         assert tuple(np.round(t[2, 40, :3]).astype(int)) == (0, 1, 0)
@@ -113,7 +113,7 @@ class TestSbixRender:
 
         tiles, _ = color_glyph_tiles(
             sfont, [sfont.glyph_index("C")], 48,
-            RasterEngine(backend="jnp"), foreground=(10, 20, 30, 255))
+            RasterEngine(), foreground=(10, 20, 30, 255))
         t = np.asarray(tiles[0])
         # the 10-unit outline square covers under a pixel at 48px:
         # partial coverage ink, in the foreground color

@@ -112,7 +112,7 @@ class TestLayoutIntegration:
         assert any(g >> GID_SHIFT == 1 for g in lt.slot_gids)
         view = ViewTransform.init(stack.info.units_per_em, 256, 128)
         page = PageRenderer(
-            stack, lt, 256, 128, RasterEngine(backend="jnp")
+            stack, lt, 256, 128, RasterEngine()
         ).render(view)
         assert (page > 0).sum() > 100
 
@@ -209,6 +209,6 @@ class TestColorTreeNodeForms:
         gid = int(stack.glyph_index("K"))  # clip-path composite
         tree = stack.color_paint_tree(gid, 0, (0, 0, 0, 255))
         assert tree is not None
-        eng = RasterEngine(backend="jnp")
+        eng = RasterEngine()
         rgba, _ = color_glyph_tiles(stack, [gid], 64, eng)
         assert float(np.asarray(rgba)[..., 3].sum()) > 0

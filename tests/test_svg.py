@@ -43,7 +43,7 @@ def font():
 def engine():
     from fontrx.engine.raster import RasterEngine
 
-    return RasterEngine(backend="jnp")
+    return RasterEngine()
 
 
 class TestTransformParse:

@@ -32,7 +32,7 @@ def font():
 def engine():
     from fontrx.engine.raster import RasterEngine
 
-    return RasterEngine(backend="jnp")
+    return RasterEngine()
 
 
 def _tiles(font, engine, chars, size=100):

@@ -344,7 +344,7 @@ class TestFontZoo:
         from fontrx.font.font import Font
         from fontrx.kernels import oracle
         from fontrx.kernels.grid import RasterGrid
-        from fontrx.kernels.winding_jnp import winding_grid
+        from fontrx.kernels.winding import winding_grid
         from fontrx.pack.segments import glyph_segments
 
         for name in ("cmr10.ttf", "STIXGeneral.ttf"):

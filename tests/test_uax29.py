@@ -77,7 +77,7 @@ class TestBackspace:
 
         fam = "\U0001F469‍\U0001F466"
         s = InteractiveSession(
-            dejavu, "hé" + fam, 96, 64, RasterEngine(backend="jnp"))
+            dejavu, "hé" + fam, 96, 64, RasterEngine())
         s.backspace()          # removes the WHOLE ZWJ family
         assert s.text == "hé"
         s.backspace()          # removes e + combining acute together

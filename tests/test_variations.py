@@ -297,7 +297,7 @@ class TestInteractiveVariation:
 
         vf = Font.open(VF1)
         s = InteractiveSession(
-            vf, "ABO", 192, 128, RasterEngine(backend="jnp")
+            vf, "ABO", 192, 128, RasterEngine()
         )
         f0 = s.frame()
         for _ in range(4):
@@ -314,7 +314,7 @@ class TestInteractiveVariation:
         from fontrx.scene.interactive import InteractiveSession
 
         s = InteractiveSession(
-            dejavu, "AB", 128, 96, RasterEngine(backend="jnp")
+            dejavu, "AB", 128, 96, RasterEngine()
         )
         f0 = s.frame()
         s.key("]")
@@ -330,7 +330,7 @@ class TestVariationStepRegressions:
 
         vf = Font.open(VF1)
         s = InteractiveSession(
-            vf, "ABO", 192, 128, RasterEngine(backend="jnp"),
+            vf, "ABO", 192, 128, RasterEngine(),
             mode="composite",
         )
         f0 = s.frame()
@@ -346,7 +346,7 @@ class TestVariationStepRegressions:
         vf = Font.open(VF1)
         vf.set_variation(wght=700)
         s = InteractiveSession(
-            vf, "A", 128, 96, RasterEngine(backend="jnp")
+            vf, "A", 128, 96, RasterEngine()
         )
         s.key("]")
         assert vf._var_user[b"wght"] == 800.0  # 700 + range/8
